@@ -19,10 +19,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
   5. exactness at scale: every reported hit rescored (numpy Gotoh oracle
      for three queries, the plain scorer on the gathered lanes for all),
      each query's top hit a planted homolog;
-  6. per-kernel times at main-path shapes beside their bounds, GCUPS,
-     latencies, one profiled 20-query search (kernel device time and the
-     device's idle share); a `kernels` JSON line, then the device JSON as
-     the last line.
+  6. both kernels against their plain versions at the main path's full
+     size, bit-exact (the whole tile stream at query 0's m; the first two
+     1024-row tiles of the long query, scores and both outgoing carries),
+     their times beside their bounds (int32 peak from the card's SM count
+     and max clock), GCUPS, latencies, one profiled 20-query search (kernel
+     device time and the device's idle share); a `kernels` JSON line, then
+     the device JSON as the last line.
 
 Imports nothing of JAX or of the swimm_tpu package.
 """
@@ -41,8 +44,10 @@ import torch
 
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-INT_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 peak, taken as the
-# int32 ALU peak (int32 issues no faster, so the bound stays a lower bound)
+INT32_OPS_PER_CLK_SM = 64   # 32-bit integer add/sub/min/max results per
+# clock per SM at compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table); times SM count and max SM
+# clock, both read from the card, gives its int32 peak
 OPS_PER_CELL = 11           # int32 ops per DP cell in the walk (E: 3,
 # H: 4, F: 3, running max: 1 — see csrc/sw_ragged.cu)
 N_SEQS = 570_000
@@ -258,10 +263,27 @@ def device_breakdown(fn) -> dict:
             "idle_share": 1 - (ours + other) / wall_ms}
 
 
-def bound(bytes_moved: float, ops: float):
+def int32_ops_per_s() -> float:
+    """The card's int32 ALU peak: SMs x 64 ops/clk x max SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_OPS_PER_CLK_SM * mhz * 1e6
+
+
+def bound(bytes_moved: float, ops: float, int_rate: float):
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_o = ops / INT_OPS_PER_S * 1e3
+    t_o = ops / int_rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def timed(fn, reps: int = 1):
+    """(mean device ms over reps, result of the last call)."""
+    box = []
+    ms = cuda_ms(lambda: box.append(fn()), reps)
+    return ms, box[-1]
 
 
 def main() -> int:
@@ -376,42 +398,67 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    for name, e in errs.items():
-        if e != 0:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"(max_abs_err={e})")
 
-    # ---- phase 6: kernel times at main-path shapes ----
+    # ---- phase 6: kernels vs plain at main-path shapes, timed ----
     tiles, outrow, n_rows, row_start = dev_db[:4]
     T, jt, V = tiles.shape
     lanes_pos = T * jt * V
     qp1 = torch.from_numpy(build_query_profile(
         queries[0].codes, "BLOSUM62", config.m_multiple)).cuda()
     m1 = qp1.shape[1]
+    int_rate = int32_ops_per_s()
+    note(f"int32 peak from the card: {int_rate / 1e12:.2f} Tops/s")
     k1 = lambda: scorer.score_tiles(tiles, outrow, n_rows, qp1, 10, 2,
                                     row_start=row_start)
-    k1_ms = cuda_ms(k1)
-    p1_ms = cuda_ms(lambda: scorer.score_tiles_ref(
-        tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start), reps=1)
+    k1_ms, got1 = timed(k1, reps=3)
+    p1_ms, ref1 = timed(lambda: scorer.score_tiles_ref(
+        tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start))
+    e1 = max_err(got1, ref1)
+    errs["sw_ragged_kernel"] = max(errs["sw_ragged_kernel"], e1)
+    note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: "
+         f"max_abs_err={e1}")
+    del got1, ref1
     b1, b1_by = bound(tiles.numel() + 4 * T + 4 * 32 * m1 + 4 * n_rows * V,
-                      OPS_PER_CELL * lanes_pos * m1)
-    qp2 = torch.from_numpy(build_query_profile(
-        long_codes, "BLOSUM62", config.m_multiple)).cuda()[
-            :, :longquery.LONG_TILE_M].contiguous()
-    m2 = qp2.shape[1]
+                      OPS_PER_CELL * lanes_pos * m1, int_rate)
+    # kernel 2 on the long query's first two 1024-row tiles: fresh carries
+    # in, then the first tile's carries in; the kernel updates its carries
+    # in place, so it gets clones and the plain version the originals
+    qp_l = torch.from_numpy(build_query_profile(
+        long_codes, "BLOSUM62", config.m_multiple)).cuda()
+    tm = longquery.LONG_TILE_M
     hc = torch.zeros(tiles.shape, dtype=torch.int32, device="cuda")
     fc = torch.full(tiles.shape, scorer.NEG, dtype=torch.int32,
                     device="cuda")
+    e2 = 0
+    p2_ms = None
+    for qt in range(2):
+        qp2 = qp_l[:, qt * tm:(qt + 1) * tm].contiguous()
+        got2 = longquery.score_qtile(tiles, outrow, n_rows, qp2, 10, 2,
+                                     hc.clone(), fc.clone(), row_start)
+        ms, ref2 = timed(lambda: longquery.score_qtile_ref(
+            tiles, outrow, n_rows, qp2, 10, 2, hc, fc, row_start))
+        p2_ms = p2_ms if p2_ms is not None else ms
+        e = max(max_err(g, r) for g, r in zip(got2, ref2))
+        note(f"sw_ragged_qtile_kernel vs plain, whole stream, query tile "
+             f"{qt}: scores + both carries max_abs_err={e}")
+        e2 = max(e2, e)
+        _, hc, fc = ref2
+        del got2, ref2
+    errs["sw_ragged_qtile_kernel"] = max(errs["sw_ragged_qtile_kernel"], e2)
+    m2 = qp2.shape[1]
     k2_ms = cuda_ms(lambda: longquery.score_qtile(
         tiles, outrow, n_rows, qp2, 10, 2, hc, fc, row_start))
-    p2_ms = cuda_ms(lambda: longquery.score_qtile_ref(
-        tiles, outrow, n_rows, qp2, 10, 2, hc, fc, row_start), reps=1)
     b2, b2_by = bound(tiles.numel() + 4 * T + 4 * 32 * m2 + 4 * n_rows * V
-                      + 16 * lanes_pos, OPS_PER_CELL * lanes_pos * m2)
+                      + 16 * lanes_pos, OPS_PER_CELL * lanes_pos * m2,
+                      int_rate)
     note(f"kernel times: sw_ragged_kernel {k1_ms:.3f} ms at m={m1} "
          f"(plain {p1_ms:.1f} ms, bound {b1:.3f} ms); "
          f"sw_ragged_qtile_kernel {k2_ms:.3f} ms at tile_m={m2} "
          f"(plain {p2_ms:.1f} ms, bound {b2:.3f} ms)")
+    for name, e in errs.items():
+        if e != 0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"(max_abs_err={e})")
     kernels = [
         {"name": "sw_ragged_kernel", "route": "cuda",
          "source": "swimm_tpu_torch/csrc/sw_ragged.cu",

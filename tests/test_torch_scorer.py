@@ -40,7 +40,7 @@ def jax_scores(tiles, outrow, n_rows, qp, go, ge, **kw):
 
 def test_score_tiles_mixed_lengths_vs_pallas_xla_oracle():
     rng = np.random.default_rng(11)
-    q = random_codes(rng, 53)
+    q = random_codes(rng, 21)
     qp = build_query_profile(q, "BLOSUM62", m_multiple=8)
     blocks, tiles, outrow = ragged_case(rng, [32, 96, 32, 64])
     got = port_scores(tiles, outrow, len(blocks), qp, 10, 2)
@@ -58,7 +58,7 @@ def test_score_tiles_mixed_lengths_vs_pallas_xla_oracle():
 def test_score_tiles_ceiling_vs_pallas():
     ceiling = 12
     rng = np.random.default_rng(12)
-    q = random_codes(rng, 24)
+    q = random_codes(rng, 8)
     qp = build_query_profile(q, "BLOSUM62", m_multiple=8)
     blocks, tiles, outrow = ragged_case(rng, [32, 32])
     exact = port_scores(tiles, outrow, 2, qp, 10, 2)
