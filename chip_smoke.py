@@ -1,14 +1,20 @@
 """On-card smoke test of swimm_tpu_torch (PyTorch + CUDA, one NVIDIA GPU).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases (any failure raises and exits nonzero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/sw_ragged.cu and hold both kernels against their plain
-     PyTorch versions on the card, bit-exact, on ragged cases (mixed block
-     lengths, tied lanes, PAD runs, a ceiling, gap_extend=0, m = 8, 16, 24,
-     40, 2048, 2064, a multi-tile long query with a small tile_m, and the
-     DB's longest block);
+  2. build csrc/sw_ragged.cu and csrc/sw_chunk.cu side by side and hold all
+     five kernels against their plain PyTorch versions on the card,
+     bit-exact, on small cases: the stream kernels on ragged cases (mixed
+     block lengths, tied lanes, PAD runs, a ceiling, gap_extend=0, m = 8,
+     16, 24, 40, 2048, 2064, a multi-tile long query with a small tile_m,
+     and the DB's longest block); the packed kernel on packs with a planted
+     homolog in the query just above another, a one-group query, a pack
+     filled to its bucket, a pack with a large unused tail, gap_extend=0
+     and gap_open=0; the chunk kernels at V = 128 and 64, m = 8, 40, 2048,
+     a ceiling, m = 2064 in 1024-row tiles, a small tile_m, and one
+     query-tile launch with random carries (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -16,16 +22,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      launch counters set to 0 just before and read just after;
   4. one 5,000-aa query (a query-0 segment inside random sequence) through
      the query-tiled path (5 tiles of 1024 rows), counted the same way;
-  5. exactness at scale: every reported hit rescored (numpy Gotoh oracle
+  5. the packed path: the same 20 queries with query_pack=True (one launch
+     per pack), hit lists equal to the per-query search's hit for hit;
+  6. the chunk path: score_db for query 0 and for the 5,000-aa query, every
+     lane's score equal to the stream kernels' over the resident stream,
+     their top 16 equal to the search's hits, one launch per chunk (per
+     chunk and query tile for the long query);
+  7. exactness at scale: every reported hit rescored (numpy Gotoh oracle
      for three queries, the plain scorer on the gathered lanes for all),
      each query's top hit a planted homolog;
-  6. both kernels against their plain versions at the main path's full
+  8. all five kernels against their plain versions at the main path's full
      size, bit-exact (the whole tile stream at query 0's m; the first two
-     1024-row tiles of the long query, scores and both outgoing carries),
-     their times beside their bounds (int32 peak from the card's SM count
-     and max clock), GCUPS, latencies, one profiled 20-query search (kernel
-     device time and the device's idle share); a `kernels` JSON line, then
-     the device JSON as the last line.
+     1024-row tiles of the long query, scores and both outgoing carries;
+     the widest pack over the whole stream; every chunk at query 0's m;
+     the long query's third tile over every chunk with the second tile's
+     carries in), their times beside their bounds (instruction rate
+     peak from the card's SM count and max clock), GCUPS, latencies, profiled 20-query
+     searches (kernel device time and the device's idle share); a
+     `kernels` JSON line, then the device JSON as the last line.
 
 Imports nothing of JAX or of the swimm_tpu package.
 """
@@ -44,12 +58,24 @@ import torch
 
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-INT32_OPS_PER_CLK_SM = 64   # 32-bit integer add/sub/min/max results per
-# clock per SM at compute capability 9.0 (CUDA C++ Programming Guide,
-# arithmetic instruction throughput table); times SM count and max SM
-# clock, both read from the card, gives its int32 peak
-OPS_PER_CELL = 11           # int32 ops per DP cell in the walk (E: 3,
-# H: 4, F: 3, running max: 1 — see csrc/sw_ragged.cu)
+INSTR_PER_CLK_SM = 128      # thread-instructions an SM can start per clock:
+# 4 warp schedulers x 32 lanes, one instruction per scheduler per clock
+# (Hopper architecture white paper); times SM count and max SM clock, both
+# read from the card, gives the card's peak instruction rate. The 64
+# int32 add/min/max results per clock per SM in NVIDIA's arithmetic
+# throughput table for sm_90 is NOT the ceiling of these kernels: sm_90 fuses
+# an addition into a maximum, and a kernel of this repo has already run
+# below the time that table gives for 11 additions and maxima per cell
+OPS_PER_CELL = 6.5          # instructions per DP cell, counted from the
+# recurrence (not from any build of it) in the shortest sm_90 sequence:
+#   hg = H - goe                       1  VIADD, shared: this row's next
+#                                         column (E) and this column's next
+#                                         row (F) both want it
+#   E  = max(hg_left, E - ge)          1  VIADDMNMX
+#   F  = max(hg_above, F - ge)         1  VIADDMNMX
+#   H  = max(diag + S, E, F, 0)        2  VIADDMNMX + VIMNMX3
+#   running max over two rows          0.5  VIMNMX3 (two H per instruction)
+#   S  = profile[row][code]            1  shared-memory load
 N_SEQS = 570_000
 N_QUERIES = 20
 LONG_LEN = 5000
@@ -156,6 +182,104 @@ def compare_kernels(errs: dict) -> None:
          f"max_abs_err={e}")
 
 
+def chunk_case(rng, B, L, V):
+    """One (B, L, V) chunk with PAD runs at lane ends and tied lanes."""
+    from swimm_tpu_torch.alphabet import PAD_CODE
+    codes = rng.integers(0, 24, size=(B, L, V), dtype=np.int8)
+    for b in range(B):
+        for v in range(0, V, 3):
+            codes[b, rng.integers(1, L + 1):, v] = PAD_CODE
+    codes[:, :, 1] = codes[:, :, 0]
+    return torch.from_numpy(codes).cuda()
+
+
+def pack_on_card(pack):
+    return (torch.from_numpy(pack.qp).cuda(),
+            torch.from_numpy(pack.seg_of_group).cuda())
+
+
+def compare_new_kernels(errs: dict) -> None:
+    """Phase 2, second half: the packed and the two chunk kernels vs their
+    plain versions, on the card."""
+    from swimm_tpu_torch.models import qpack
+    from swimm_tpu_torch.ops import longquery, scorer
+    from swimm_tpu_torch.utils.synth import mutate, random_codes
+    rng = np.random.default_rng(6)
+    k3, k4, k5 = ("sw_ragged_packed_kernel", "sw_chunk_kernel",
+                  "sw_chunk_qtile_kernel")
+    packs = [  # (what, query lengths, bucket, gap_open, gap_extend)
+        ("homolog above the next query", (40, 16, 61, 24), 256, 10, 2),
+        ("one-group query", (8,), 64, 10, 2),
+        ("filled to its bucket", (3, 8, 1, 5), 64, 10, 2),
+        ("large unused tail", (100, 7), 1024, 10, 2),
+        ("gap_extend=0", (33, 50), 128, 5, 0),
+        ("gap_open=0", (33, 50), 128, 0, 4),
+        ("24 queries, 6 strips", (1,) * 24, 384, 10, 2),
+    ]
+    for what, lens, bucket, go, ge in packs:
+        queries = [random_codes(rng, n) for n in lens]
+        tiles, outrow, n_rows = ragged_case(rng, [2, 1, 3])
+        # strong homologs of the first query: big H and F in the rows
+        # right above the next query's, the case a leak would show in
+        hom = mutate(rng, queries[0], 0.02, 0.0)[:32].astype(np.int8)
+        tiles[0, :len(hom), 7] = torch.from_numpy(hom).cuda()
+        pack, = qpack.build_query_packs(queries, buckets=(bucket,))
+        qp, seg = pack_on_card(pack)
+        got = scorer.score_tiles_packed(tiles, outrow, n_rows, qp, seg, go,
+                                        ge)
+        ref = scorer.score_tiles_packed_ref(tiles, outrow, n_rows, qp, seg,
+                                            go, ge)
+        torch.cuda.synchronize()
+        errs[k3] = max(errs[k3], max_err(got, ref))
+        used = sorted(e.seg // 2 for e in pack.entries)
+        unused = [p for p in range(got.shape[1]) if p not in used]
+        if unused and int(got[:, unused].abs().max().item()) != 0:
+            raise AssertionError(f"{k3} {what}: an unused plane is not zero")
+        note(f"{k3} {what} lens={lens} M={pack.M} gaps={go}/{ge}: "
+             f"max_abs_err={max_err(got, ref)}")
+    chunks = [  # (B, L, V, m, gap_open, gap_extend, ceiling)
+        (3, 96, 128, 8, 10, 2, None),
+        (2, 64, 128, 40, 11, 1, None),
+        (5, 32, 64, 72, 5, 0, None),
+        (4, 160, 128, 64, 10, 2, 40),
+        (2, 64, 64, 2048, 10, 2, None),
+    ]
+    for B, L, V, m, go, ge, ceil in chunks:
+        codes = chunk_case(rng, B, L, V)
+        qp = profile(rng, m)
+        got = scorer.score_chunk(codes, qp, go, ge, ceiling=ceil)
+        ref = scorer.score_chunk_ref(codes, qp, go, ge, ceiling=ceil)
+        torch.cuda.synchronize()
+        errs[k4] = max(errs[k4], max_err(got, ref))
+        note(f"{k4} B={B} L={L} V={V} m={m} gaps={go}/{ge} ceiling={ceil}: "
+             f"max_abs_err={max_err(got, ref)}")
+    # long queries over a chunk: m=2064 in 1024-row tiles (3 launches) and
+    # m=200 in 64-row tiles (4 launches), against the one-pass plain scorer
+    for B, L, V, m, tile_m in ((2, 64, 128, 2064, None), (3, 96, 64, 200, 64)):
+        codes = chunk_case(rng, B, L, V)
+        qp = profile(rng, m)
+        got = longquery.score_chunk_long(codes, qp, 10, 2, tile_m=tile_m)
+        ref = scorer.score_chunk_ref(codes, qp, 10, 2)
+        torch.cuda.synchronize()
+        errs[k5] = max(errs[k5], max_err(got, ref))
+        note(f"{k5} score_chunk_long V={V} m={m} tile_m={tile_m}: "
+             f"max_abs_err={max_err(got, ref)}")
+    # one launch with carries in and out vs the plain one-tile step
+    codes = chunk_case(rng, 3, 128, 128)
+    hc = torch.randint(0, 60, codes.shape, dtype=torch.int32, device="cuda")
+    fc = torch.randint(-80, 40, codes.shape, dtype=torch.int32,
+                       device="cuda")
+    qp = profile(rng, 72)
+    ref = longquery.score_chunk_qtile_ref(codes, qp, 10, 2, hc, fc)
+    got = longquery.score_chunk_qtile(codes, qp, 10, 2, hc.clone(),
+                                      fc.clone())
+    torch.cuda.synchronize()
+    e = max(max_err(g, r) for g, r in zip(got, ref))
+    errs[k5] = max(errs[k5], e)
+    note(f"{k5} one tile, random carries in, scores + carries out: "
+         f"max_abs_err={e}")
+
+
 def longest_block_check(dev_db, qp_short, errs: dict) -> None:
     """Both kernels vs plain on the DB's longest block."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -251,7 +375,7 @@ def device_breakdown(fn) -> dict:
         if ev.device_type != DeviceType.CUDA:
             continue
         us = ev.self_device_time_total
-        if "sw_ragged" in ev.key:
+        if "sw_ragged" in ev.key or "sw_chunk" in ev.key:
             ours += us / 1e3
         else:
             other += us / 1e3
@@ -263,14 +387,15 @@ def device_breakdown(fn) -> dict:
             "idle_share": 1 - (ours + other) / wall_ms}
 
 
-def int32_ops_per_s() -> float:
-    """The card's int32 ALU peak: SMs x 64 ops/clk x max SM clock."""
+def instruction_rate() -> float:
+    """The card's peak thread-instruction rate: SMs x 128 per clock x max
+    SM clock."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_OPS_PER_CLK_SM * mhz * 1e6
+    return sms * INSTR_PER_CLK_SM * mhz * 1e6
 
 
 def bound(bytes_moved: float, ops: float, int_rate: float):
@@ -286,7 +411,29 @@ def timed(fn, reps: int = 1):
     return ms, box[-1]
 
 
-def main() -> int:
+def same_hits(a, b) -> bool:
+    key = lambda r: [(h.rank, h.score, h.sorted_idx) for h in r.hits]
+    return [key(r) for r in a] == [key(r) for r in b]
+
+
+def check_score_vector(packed, name, vec, lane_scores, result, top_k):
+    """A score_db vector must equal the stream kernel's lane scores put in
+    sorted-db order, and its top hits must be the search's."""
+    from swimm_tpu_torch.models import engine
+    exp = engine.scatter_lane_scores(packed, lane_scores.cpu().numpy())
+    if not np.array_equal(vec, exp):
+        raise AssertionError(f"score_db({name}) differs from the stream "
+                             f"kernel on {int((vec != exp).sum())} sequences")
+    top = engine.top_k_hits(packed, vec, top_k)
+    if ([(h.score, h.sorted_idx) for h in top]
+            != [(h.score, h.sorted_idx) for h in result.hits]):
+        raise AssertionError(f"score_db({name}): top {top_k} differ from "
+                             "the search's hits")
+
+
+def main(argv=None) -> int:
+    kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
+                                        else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script measures the port on a GPU only",
@@ -294,8 +441,8 @@ def main() -> int:
         return 1
     from swimm_tpu_torch.db import build_db
     from swimm_tpu_torch.fasta import FastaRecord
-    from swimm_tpu_torch.models import engine
-    from swimm_tpu_torch.models.engine import SearchConfig, search
+    from swimm_tpu_torch.models import engine, qpack
+    from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
     from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.ops import _build, longquery, scorer
     from swimm_tpu_torch.utils.synth import (random_codes, synth_fasta_fast,
@@ -309,18 +456,41 @@ def main() -> int:
     note(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
     phases = {}
+    counters = {"sw_ragged_kernel": scorer.score_tiles,
+                "sw_ragged_qtile_kernel": longquery.score_qtile,
+                "sw_ragged_packed_kernel": scorer.score_tiles_packed,
+                "sw_chunk_kernel": scorer.score_chunk,
+                "sw_chunk_qtile_kernel": longquery.score_chunk_qtile}
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        """fn() with every launch counter set to 0 just before and read
+        just after; adds the counts to `launches` and returns (result,
+        this run's counts)."""
+        for w in counters.values():
+            w.launches = 0
+        res = fn()
+        seen = {name: w.launches for name, w in counters.items()}
+        for name, n in seen.items():
+            launches[name] += n
+        return res, seen
 
     # ---- phase 2: build + kernels vs plain ----
     t = time.perf_counter()
-    scorer.kernels()
+    scorer.build_kernels()
     phases["build_s"] = time.perf_counter() - t
-    for line in _build.BUILD_LOGS.get("sw_ragged", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            note(f"ptxas: {line.strip()}")
-    errs = {"sw_ragged_kernel": 0, "sw_ragged_qtile_kernel": 0}
+    for src, log in sorted(_build.BUILD_LOGS.items()):
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error")):
+                note(f"ptxas {src}: {line.strip()}")
+    errs = dict.fromkeys(counters, 0)
     t = time.perf_counter()
     compare_kernels(errs)
+    compare_new_kernels(errs)
     phases["compare_s"] = time.perf_counter() - t
+    if kernels_only:
+        note(f"kernels only: max_abs_err per kernel {errs}")
+        return 0 if not any(errs.values()) else 1
 
     # ---- phase 3: Swiss-Prot-scale DB + 20-query batch ----
     rng = np.random.default_rng(0)
@@ -339,8 +509,8 @@ def main() -> int:
         packed = build_db(str(fasta), Path(td) / "db", V=128)
         phases["parse_pack_s"] = time.perf_counter() - t
     tiles_np, _, n_rows = packed.flat_tiles()
-    note(f"packed: {n_rows} blocks, tile stream {tiles_np.shape} "
-         f"({tiles_np.nbytes / 1e6:.1f} MB)")
+    note(f"packed: {n_rows} blocks in {len(packed.chunks)} chunks, tile "
+         f"stream {tiles_np.shape} ({tiles_np.nbytes / 1e6:.1f} MB)")
     t = time.perf_counter()
     dev_db = engine.device_tiles(packed)
     torch.cuda.synchronize()
@@ -351,13 +521,11 @@ def main() -> int:
     t = time.perf_counter()
     search(packed, queries, config)                      # warm-up
     phases["warmup_search_s"] = time.perf_counter() - t
-    scorer.score_tiles.launches = 0
-    longquery.score_qtile.launches = 0
-    results, met = search(packed, queries, config)
-    launches = {"sw_ragged_kernel": scorer.score_tiles.launches,
-                "sw_ragged_qtile_kernel": longquery.score_qtile.launches}
+    (results, met), seen = counted(lambda: search(packed, queries, config))
     note(f"20-query search: {met.seconds:.3f} s, {met.gcups:.1f} GCUPS "
-         f"(padded {met.padded_gcups:.1f}), launches {launches}")
+         f"(padded {met.padded_gcups:.1f}), launches {seen}")
+    if seen["sw_ragged_kernel"] != N_QUERIES:
+        raise AssertionError(f"expected {N_QUERIES} launches, got {seen}")
 
     # ---- phase 4: one 5,000-aa query through the query-tiled path ----
     lrng = np.random.default_rng(3)
@@ -369,26 +537,84 @@ def main() -> int:
     long_q = FastaRecord(f"LONG len={LONG_LEN} (contains "
                          f"{queries[0].title.split()[0]})", long_codes)
     m_long = -(-LONG_LEN // config.m_multiple) * config.m_multiple
+    n_qt = -(-m_long // longquery.LONG_TILE_M)
     assert engine.select_mode(m_long) == "tiles_long"
     search(packed, [long_q], config)                     # warm-up
-    scorer.score_tiles.launches = 0
-    longquery.score_qtile.launches = 0
-    long_res, long_met = search(packed, [long_q], config)
-    long_launches = longquery.score_qtile.launches
-    launches["sw_ragged_qtile_kernel"] += long_launches
-    launches["sw_ragged_kernel"] += scorer.score_tiles.launches
+    (long_res, long_met), seen = counted(
+        lambda: search(packed, [long_q], config))
     note(f"{LONG_LEN}-aa query: {long_met.seconds:.3f} s, "
-         f"{long_met.gcups:.1f} GCUPS, {long_launches} tile launches")
-    if long_launches != -(-m_long // longquery.LONG_TILE_M):
-        raise AssertionError(f"expected 5 query-tile launches, got "
-                             f"{long_launches}")
+         f"{long_met.gcups:.1f} GCUPS, launches {seen}")
+    if seen["sw_ragged_qtile_kernel"] != n_qt:
+        raise AssertionError(f"expected {n_qt} query-tile launches, got "
+                             f"{seen}")
 
     # single-query latency (first query alone)
     _, one_met = search(packed, queries[:1], config)
     breakdown = device_breakdown(lambda: search(packed, queries, config))
     note(f"20-query search under torch.profiler: {breakdown}")
 
-    # ---- phase 5: exactness at scale ----
+    # ---- phase 5: the packed path (query_pack=True) ----
+    pconfig = SearchConfig(top_k=16, query_pack=True)
+    packs = qpack.build_query_packs(queries, pconfig.matrix)
+    pack_rows = sum(p.M for p in packs)
+    fill = sum(e.n_rows for p in packs for e in p.entries) / pack_rows
+    note(f"{len(packs)} packs, M = {[p.M for p in packs]}, "
+         f"{[len(p.entries) for p in packs]} queries each; query rows / "
+         f"pack rows = {fill:.3f}")
+    t = time.perf_counter()
+    search(packed, queries, pconfig)                     # warm-up
+    phases["warmup_packed_s"] = time.perf_counter() - t
+    (p_results, p_met), seen = counted(
+        lambda: search(packed, queries, pconfig))
+    note(f"20-query packed search: {p_met.seconds:.3f} s, {p_met.gcups:.1f} "
+         f"GCUPS (padded {p_met.padded_gcups:.1f}), launches {seen}")
+    if seen["sw_ragged_packed_kernel"] != len(packs) or any(
+            n for name, n in seen.items()
+            if name != "sw_ragged_packed_kernel"):
+        raise AssertionError(f"expected {len(packs)} packed launches and no "
+                             f"other, got {seen}")
+    if not same_hits(p_results, results):
+        raise AssertionError("packed search's hits differ from the "
+                             "per-query search's")
+    p_breakdown = device_breakdown(lambda: search(packed, queries, pconfig))
+    note(f"20-query packed search under torch.profiler: {p_breakdown}")
+
+    # ---- phase 6: the chunk path (score_db) ----
+    tiles, outrow, n_rows, row_start = dev_db[:4]
+    T, jt, V = tiles.shape
+    lanes_pos = T * jt * V
+    n_chunks = len(packed.chunks)
+    qp1 = torch.from_numpy(build_query_profile(
+        queries[0].codes, "BLOSUM62", config.m_multiple)).cuda()
+    qp_l = torch.from_numpy(build_query_profile(
+        long_codes, "BLOSUM62", config.m_multiple)).cuda()
+    m1 = qp1.shape[1]
+    score_db(packed, queries[0], config)                 # warm-up
+    t = time.perf_counter()
+    vec, seen = counted(lambda: score_db(packed, queries[0], config))
+    db_short_s = time.perf_counter() - t
+    if seen["sw_chunk_kernel"] != n_chunks:
+        raise AssertionError(f"expected {n_chunks} chunk launches, got "
+                             f"{seen}")
+    check_score_vector(packed, "query 0", vec, scorer.score_tiles(
+        tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start).reshape(-1),
+        results[0], config.top_k)
+    t = time.perf_counter()
+    vec_l, seen = counted(lambda: score_db(packed, long_q, config))
+    db_long_s = time.perf_counter() - t
+    if seen["sw_chunk_qtile_kernel"] != n_chunks * n_qt:
+        raise AssertionError(f"expected {n_chunks * n_qt} chunk query-tile "
+                             f"launches, got {seen}")
+    check_score_vector(packed, "long query", vec_l,
+                       longquery.score_tiles_long(
+                           tiles, outrow, n_rows, qp_l, 10, 2,
+                           row_start=row_start).reshape(-1),
+                       long_res[0], config.top_k)
+    note(f"score_db over {n_chunks} chunks: query 0 {db_short_s:.3f} s, "
+         f"{LONG_LEN}-aa query {db_long_s:.3f} s; both vectors equal the "
+         "stream kernels' and their top 16 equal the search's hits")
+
+    # ---- phase 7: exactness at scale ----
     t = time.perf_counter()
     n_checked = check_hits(packed, queries, results, config, n_oracle=3)
     n_checked += check_hits(packed, [long_q], long_res, config, n_oracle=0)
@@ -399,15 +625,17 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
-    # ---- phase 6: kernels vs plain at main-path shapes, timed ----
-    tiles, outrow, n_rows, row_start = dev_db[:4]
-    T, jt, V = tiles.shape
-    lanes_pos = T * jt * V
-    qp1 = torch.from_numpy(build_query_profile(
-        queries[0].codes, "BLOSUM62", config.m_multiple)).cuda()
-    m1 = qp1.shape[1]
-    int_rate = int32_ops_per_s()
-    note(f"int32 peak from the card: {int_rate / 1e12:.2f} Tops/s")
+    # ---- phase 8: kernels vs plain at main-path shapes, timed ----
+    int_rate = instruction_rate()
+    note(f"instruction rate peak from the card: {int_rate / 1e12:.2f} "
+         "T thread-instructions/s")
+    stream_bytes = tiles.numel() + 8 * (n_rows + 1)
+
+    def walk_bound(m, extra_bytes):
+        return bound(stream_bytes + 4 * 32 * m + extra_bytes,
+                     OPS_PER_CELL * lanes_pos * m, int_rate)
+
+    t = time.perf_counter()
     k1 = lambda: scorer.score_tiles(tiles, outrow, n_rows, qp1, 10, 2,
                                     row_start=row_start)
     k1_ms, got1 = timed(k1, reps=3)
@@ -418,13 +646,10 @@ def main() -> int:
     note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: "
          f"max_abs_err={e1}")
     del got1, ref1
-    b1, b1_by = bound(tiles.numel() + 4 * T + 4 * 32 * m1 + 4 * n_rows * V,
-                      OPS_PER_CELL * lanes_pos * m1, int_rate)
+    b1, b1_by = walk_bound(m1, 4 * n_rows * V)
     # kernel 2 on the long query's first two 1024-row tiles: fresh carries
     # in, then the first tile's carries in; the kernel updates its carries
     # in place, so it gets clones and the plain version the originals
-    qp_l = torch.from_numpy(build_query_profile(
-        long_codes, "BLOSUM62", config.m_multiple)).cuda()
     tm = longquery.LONG_TILE_M
     hc = torch.zeros(tiles.shape, dtype=torch.int32, device="cuda")
     fc = torch.full(tiles.shape, scorer.NEG, dtype=torch.int32,
@@ -446,47 +671,132 @@ def main() -> int:
         del got2, ref2
     errs["sw_ragged_qtile_kernel"] = max(errs["sw_ragged_qtile_kernel"], e2)
     m2 = qp2.shape[1]
+    hk, fk = hc.clone(), fc.clone()   # timed in place; hc/fc (the second
+    # tile's outgoing carries) are kept for kernel 5 below
     k2_ms = cuda_ms(lambda: longquery.score_qtile(
-        tiles, outrow, n_rows, qp2, 10, 2, hc, fc, row_start))
-    b2, b2_by = bound(tiles.numel() + 4 * T + 4 * 32 * m2 + 4 * n_rows * V
-                      + 16 * lanes_pos, OPS_PER_CELL * lanes_pos * m2,
+        tiles, outrow, n_rows, qp2, 10, 2, hk, fk, row_start))
+    del hk, fk
+    b2, b2_by = walk_bound(m2, 4 * n_rows * V + 16 * lanes_pos)
+    phases["full_size_k1_k2_s"] = time.perf_counter() - t
+
+    # kernel 3 on the widest pack over the whole stream
+    t = time.perf_counter()
+    wide = max(packs, key=lambda p: p.M)
+    qp3, seg3 = pack_on_card(wide)
+    k3 = lambda: scorer.score_tiles_packed(tiles, outrow, n_rows, qp3, seg3,
+                                           10, 2, row_start=row_start)
+    k3_ms, got3 = timed(k3, reps=3)
+    p3_ms, ref3 = timed(lambda: scorer.score_tiles_packed_ref(
+        tiles, outrow, n_rows, qp3, seg3, 10, 2, row_start=row_start))
+    e3 = max_err(got3, ref3)
+    errs["sw_ragged_packed_kernel"] = max(errs["sw_ragged_packed_kernel"],
+                                          e3)
+    note(f"sw_ragged_packed_kernel vs plain, whole stream, pack M={wide.M} "
+         f"of {len(wide.entries)} queries: max_abs_err={e3}")
+    planes_bytes = got3.numel() * 4
+    del got3, ref3
+    b3, b3_by = walk_bound(wide.M, 4 * (wide.M // 8) + planes_bytes)
+    phases["full_size_k3_s"] = time.perf_counter() - t
+
+    # kernel 4 over every chunk at query 0's m
+    t = time.perf_counter()
+    chunks = engine.device_chunks(packed)
+    k4 = lambda: [scorer.score_chunk(c, qp1, 10, 2) for c in chunks]
+    k4_ms, got4 = timed(k4, reps=3)
+    p4_ms, ref4 = timed(
+        lambda: [scorer.score_chunk_ref(c, qp1, 10, 2) for c in chunks])
+    e4 = max(max_err(g, r) for g, r in zip(got4, ref4))
+    errs["sw_chunk_kernel"] = max(errs["sw_chunk_kernel"], e4)
+    note(f"sw_chunk_kernel vs plain, all {n_chunks} chunks at m={m1}: "
+         f"max_abs_err={e4}")
+    del got4, ref4
+    b4, b4_by = bound(tiles.numel() + n_chunks * 4 * 32 * m1
+                      + 4 * n_rows * V, OPS_PER_CELL * lanes_pos * m1,
                       int_rate)
-    note(f"kernel times: sw_ragged_kernel {k1_ms:.3f} ms at m={m1} "
-         f"(plain {p1_ms:.1f} ms, bound {b1:.3f} ms); "
-         f"sw_ragged_qtile_kernel {k2_ms:.3f} ms at tile_m={m2} "
-         f"(plain {p2_ms:.1f} ms, bound {b2:.3f} ms)")
+    phases["full_size_k4_s"] = time.perf_counter() - t
+
+    # kernel 5: the long query's third tile over every chunk, the second
+    # tile's outgoing carries in (hc/fc above: the stream's carries are the
+    # chunks' carries end to end, so they are sliced like the codes)
+    t = time.perf_counter()
+    qp5 = qp_l[:, 2 * tm:3 * tm].contiguous()
+    spans = np.cumsum([0] + [c.shape[0] * c.shape[1] // jt for c in chunks])
+    car = [(hc[a:b].view(c.shape), fc[a:b].view(c.shape))
+           for c, a, b in zip(chunks, spans[:-1], spans[1:])]
+    got5 = [longquery.score_chunk_qtile(c, qp5, 10, 2, h.clone(), f.clone())
+            for c, (h, f) in zip(chunks, car)]
+    p5_ms, ref5 = timed(
+        lambda: [longquery.score_chunk_qtile_ref(c, qp5, 10, 2, h, f)
+                 for c, (h, f) in zip(chunks, car)])
+    e5 = max(max_err(g, r) for gs, rs in zip(got5, ref5)
+             for g, r in zip(gs, rs))
+    errs["sw_chunk_qtile_kernel"] = max(errs["sw_chunk_qtile_kernel"], e5)
+    note(f"sw_chunk_qtile_kernel vs plain, all {n_chunks} chunks, query "
+         f"tile 2: scores + both carries max_abs_err={e5}")
+    del ref5
+    k5_ms = cuda_ms(lambda: [   # in place on the carries just compared
+        longquery.score_chunk_qtile(c, qp5, 10, 2, h, f)
+        for c, (_, h, f) in zip(chunks, got5)])
+    del got5
+    b5, b5_by = bound(tiles.numel() + n_chunks * 4 * 32 * tm
+                      + 4 * n_rows * V + 16 * lanes_pos,
+                      OPS_PER_CELL * lanes_pos * tm, int_rate)
+    phases["full_size_k5_s"] = time.perf_counter() - t
+
     for name, e in errs.items():
         if e != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"(max_abs_err={e})")
-    kernels = [
-        {"name": "sw_ragged_kernel", "route": "cuda",
-         "source": "swimm_tpu_torch/csrc/sw_ragged.cu",
-         "replaces": "swimm_tpu/ops/pallas_scorer.py:317",
-         "launches": launches["sw_ragged_kernel"],
-         "max_abs_err": errs["sw_ragged_kernel"], "exact": True,
-         "ms": k1_ms, "plain_ms": p1_ms, "bound_ms": b1, "bound_by": b1_by,
-         "library_ms": None, "shape": f"T={T} V={V} m={m1}"},
-        {"name": "sw_ragged_qtile_kernel", "route": "cuda",
-         "source": "swimm_tpu_torch/csrc/sw_ragged.cu",
-         "replaces": "swimm_tpu/ops/longquery.py:208",
-         "launches": launches["sw_ragged_qtile_kernel"],
-         "max_abs_err": errs["sw_ragged_qtile_kernel"], "exact": True,
-         "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2, "bound_by": b2_by,
-         "library_ms": None, "shape": f"T={T} V={V} tile_m={m2}"},
+    rows = [  # name, source, replaces, ms, plain ms, bound, by, shape
+        ("sw_ragged_kernel", "sw_ragged.cu",
+         "swimm_tpu/ops/pallas_scorer.py:317", k1_ms, p1_ms, b1, b1_by,
+         f"T={T} V={V} m={m1}"),
+        ("sw_ragged_qtile_kernel", "sw_ragged.cu",
+         "swimm_tpu/ops/longquery.py:208", k2_ms, p2_ms, b2, b2_by,
+         f"T={T} V={V} tile_m={m2}"),
+        ("sw_ragged_packed_kernel", "sw_ragged.cu",
+         "swimm_tpu/ops/pallas_scorer.py:434", k3_ms, p3_ms, b3, b3_by,
+         f"T={T} V={V} M={wide.M} queries={len(wide.entries)}"),
+        ("sw_chunk_kernel", "sw_chunk.cu",
+         "swimm_tpu/ops/pallas_scorer.py:245", k4_ms, p4_ms, b4, b4_by,
+         f"{n_chunks} chunks, {n_rows} blocks, V={V} m={m1}; ms over all "
+         "chunks"),
+        ("sw_chunk_qtile_kernel", "sw_chunk.cu",
+         "swimm_tpu/ops/longquery.py:126", k5_ms, p5_ms, b5, b5_by,
+         f"{n_chunks} chunks, {n_rows} blocks, V={V} tile_m={tm}; ms over "
+         "all chunks"),
     ]
+    kernels = [
+        {"name": name, "route": "cuda",
+         "source": f"swimm_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "exact": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+         "bound_by": by, "library_ms": None, "shape": shape}
+        for name, src, replaces, ms, plain_ms, b, by, shape in rows]
+    for k in kernels:
+        note(f"{k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} ms, "
+             f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}), "
+             f"{k['launches']} launches on the main path; {k['shape']}")
+
+    def batch(m):
+        return {"seconds": m.seconds, "gcups": m.gcups,
+                "padded_gcups": m.padded_gcups,
+                "per_query_s": m.seconds / N_QUERIES, "timers": m.timers}
+
     summary = {
         "card": card,
         "db": {"n_seqs": packed.n_seqs, "residues": packed.total_residues,
-               "blocks": n_rows, "tiles": T},
-        "batch20": {"seconds": met.seconds, "gcups": met.gcups,
-                    "padded_gcups": met.padded_gcups,
-                    "per_query_s": met.seconds / N_QUERIES,
-                    "timers": met.timers},
+               "blocks": n_rows, "tiles": T, "chunks": n_chunks},
+        "batch20": batch(met),
+        "batch20_packed": dict(batch(p_met), packs=len(packs),
+                               pack_rows=pack_rows, fill=fill),
         "single_query": {"seconds": one_met.seconds, "gcups": one_met.gcups},
         "batch20_profiled": breakdown,
+        "batch20_packed_profiled": p_breakdown,
         "long5000": {"seconds": long_met.seconds, "gcups": long_met.gcups,
                      "padded_gcups": long_met.padded_gcups},
+        "score_db": {"query0_s": db_short_s, "long5000_s": db_long_s,
+                     "chunks": n_chunks},
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

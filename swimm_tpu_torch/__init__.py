@@ -2,14 +2,22 @@
 PyTorch and CUDA (NVIDIA Hopper).
 
 The PyTorch/CUDA counterpart of the ``swimm_tpu`` package, module for
-module: the packed-DB format, the whole-DB resident search path and its two
-kernels (csrc/sw_ragged.cu), bit-exact with ``swimm_tpu``. Imports torch
-and numpy only. Entry points run on 'cuda' unless given device='cpu'.
+module: the packed-DB format, the whole-DB resident search path (one launch
+per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
+the per-chunk scoring API ``score_db`` and their five hand-written kernels
+(csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walk of
+csrc/sw_walk.cuh), bit-exact with ``swimm_tpu``. Imports torch and numpy
+only. Entry points run on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
-  models.engine      SearchConfig, search (resident DB, device top-k)
-  ops.scorer         score_tiles      -> sw_ragged_kernel
-  ops.longquery      score_tiles_long -> sw_ragged_qtile_kernel
+  models.engine      SearchConfig, search (resident DB, device top-k),
+                     score_db (every lane's score, chunk by chunk)
+  models.qpack       build_query_packs (many queries in one profile)
+  ops.scorer         score_tiles        -> sw_ragged_kernel
+                     score_tiles_packed -> sw_ragged_packed_kernel
+                     score_chunk        -> sw_chunk_kernel
+  ops.longquery      score_tiles_long   -> sw_ragged_qtile_kernel
+                     score_chunk_long   -> sw_chunk_qtile_kernel
   db / fasta / ...   packed DB format v1, FASTA, matrices, alphabet
 """
 
@@ -17,6 +25,7 @@ __version__ = "0.1.0"
 
 from swimm_tpu_torch.db import build_db, load_db
 from swimm_tpu_torch.fasta import read_fasta
-from swimm_tpu_torch.models.engine import SearchConfig, search
+from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
 
-__all__ = ["build_db", "load_db", "read_fasta", "SearchConfig", "search"]
+__all__ = ["build_db", "load_db", "read_fasta", "SearchConfig", "score_db",
+           "search"]

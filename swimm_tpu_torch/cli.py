@@ -4,7 +4,7 @@ synth, preprocess and search subcommands).
     python -m swimm_tpu_torch synth -o db.fasta -n 10000
     python -m swimm_tpu_torch preprocess -i db.fasta -o db_packed
     python -m swimm_tpu_torch search -d db_packed -q q.fasta \\
-        -s BLOSUM62 -g 10 -e 2 -r 16 [--device cpu] [--json]
+        -s BLOSUM62 -g 10 -e 2 -r 16 [--query-pack] [--device cpu] [--json]
 
 search runs on the CUDA device unless --device cpu is given.
 """
@@ -41,6 +41,14 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("-g", "--gap-open", type=int, default=10)
     se.add_argument("-e", "--gap-extend", type=int, default=2)
     se.add_argument("-r", "--top-k", type=int, default=16)
+    se.add_argument("--query-pack", dest="query_pack", action="store_true",
+                    default=False,
+                    help="pack the query batch along the profile axis: one "
+                         "kernel launch per fixed-size pack of up to 24 "
+                         "queries instead of one per query")
+    se.add_argument("--no-query-pack", dest="query_pack",
+                    action="store_false",
+                    help="one kernel launch per query (default)")
     se.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch scorers)")
@@ -93,7 +101,8 @@ def _run(args) -> int:
     from swimm_tpu_torch.models.engine import SearchConfig, search
 
     config = SearchConfig(matrix=args.matrix, gap_open=args.gap_open,
-                          gap_extend=args.gap_extend, top_k=args.top_k)
+                          gap_extend=args.gap_extend, top_k=args.top_k,
+                          query_pack=args.query_pack)
     results, metrics = search(load_db(args.db), read_fasta(args.query),
                               config, device=args.device)
     if args.json:

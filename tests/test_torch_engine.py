@@ -1,9 +1,12 @@
 """swimm_tpu_torch.search (device='cpu': the plain PyTorch scorers) against
 swimm_tpu.search (xla backend): identical hit lists — scores, sorted
 indices, titles and tie order — for queries up to and over 2048 padded
-rows, plus the package's import hygiene and device rule."""
+rows, per query and packed (query_pack=True); score_db against
+swimm_tpu.score_db; plus the package's import hygiene and device rule.
+Tolerance 0 throughout: every path computes exact integers."""
 
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -17,9 +20,9 @@ from swimm_tpu.models import engine as jengine
 from swimm_tpu.models.stream import dispatched_rows as j_rows
 from swimm_tpu.models.stream import select_mode as j_mode
 from swimm_tpu.utils.synth import mutate
-from swimm_tpu_torch import SearchConfig, build_db, search
+from swimm_tpu_torch import SearchConfig, build_db, score_db, search
 from swimm_tpu_torch.fasta import FastaRecord
-from swimm_tpu_torch.models import engine
+from swimm_tpu_torch.models import engine, qpack
 from swimm_tpu_torch.utils.synth import random_codes, synth_db
 
 REPO = Path(__file__).resolve().parent.parent
@@ -103,10 +106,12 @@ def test_search_precisions_and_unported_postures(tmp_path):
     pt, pj = _db(tmp_path, synth_db(40, seed=12, median_len=40, max_len=80))
     for prec in ("f32", "int32"):
         _compare(pt, pj, [q], precision=prec)
-    for kw in ({"precision": "ladder"}, {"query_pack": True},
-               {"db_stream": True}, {"evalue": True}):
+    for kw in ({"precision": "ladder"}, {"db_stream": True},
+               {"evalue": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             search(pt, [q], SearchConfig(**kw), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            score_db(pt, q, SearchConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"gap_open": -1}, {"gap_extend": -2},
@@ -133,8 +138,12 @@ def test_device_top_k_breaks_ties_by_lowest_index():
 
 
 def test_package_imports_neither_jax_nor_swimm_tpu():
+    # one child interpreter: the only way to see what the package alone
+    # imports. Its limit is generous because a fresh torch import on a
+    # machine busy with other test workers can take minutes.
     code = ("import sys, swimm_tpu_torch, swimm_tpu_torch.cli, "
-            "swimm_tpu_torch.models.engine, swimm_tpu_torch.ops.longquery, "
+            "swimm_tpu_torch.models.engine, swimm_tpu_torch.models.qpack, "
+            "swimm_tpu_torch.ops.scorer, swimm_tpu_torch.ops.longquery, "
             "swimm_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
@@ -142,7 +151,7 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -156,7 +165,7 @@ def test_search_without_device_raises_when_cuda_absent(tmp_path,
         search(pt, [FastaRecord("q", random_codes(rng, 10))])
 
 
-def test_cli_search_cpu(tmp_path, capsys):
+def test_cli_search_cpu(tmp_path, capsys, monkeypatch):
     from swimm_tpu_torch.cli import main
 
     def run(*args):
@@ -171,16 +180,22 @@ def test_cli_search_cpu(tmp_path, capsys):
     assert out.count("Query: ") == 2 and "GCUPS" in out
     assert main(["search", "-d", pdb, "-q", q, "-s", "BLOSUM999",
                  "--device", "cpu"]) == 2
-    # the module entry point, as a user runs it
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", "swimm_tpu_torch", "search",
-                          "-d", pdb, "-q", q, "-r", "3", "--device", "cpu",
-                          "--json"], cwd=tmp_path, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
+    # the module entry point (python -m swimm_tpu_torch), driven in this
+    # process: a child interpreter's start-up under a loaded test run has
+    # no useful time limit
     import json
-    js = json.loads(res.stdout)
-    assert [len(r["hits"]) for r in js["results"]] == [3, 3]
+    packed_hits = None
+    for flag in ("--no-query-pack", "--query-pack"):
+        monkeypatch.setattr(sys, "argv", [
+            "swimm_tpu_torch", "search", "-d", pdb, "-q", q, "-r", "3",
+            "--device", "cpu", "--json", flag])
+        with pytest.raises(SystemExit) as done:
+            runpy.run_module("swimm_tpu_torch", run_name="__main__")
+        assert done.value.code == 0
+        js = json.loads(capsys.readouterr().out)
+        assert [len(r["hits"]) for r in js["results"]] == [3, 3]
+        assert packed_hits in (None, js["results"])
+        packed_hits = js["results"]
 
 
 @pytest.mark.parametrize("k", [1, 4, 9, 200])
@@ -197,3 +212,88 @@ def test_host_top_k_and_lane_scatter_match_jax(tmp_path, k):
     assert [(h.rank, h.score, h.sorted_idx, h.orig_idx, h.title)
             for h in got] == [(h.rank, h.score, h.sorted_idx, h.orig_idx,
                                h.title) for h in ref]
+
+
+def _mixed_db(tmp_path, queries, n=200, seed=31):
+    recs = synth_db(n, seed=seed, queries=[q.codes for q in queries],
+                    median_len=50, max_len=160, homolog_frac=0.05)
+    return _db(tmp_path, recs)
+
+
+def test_packed_search_matches_jax(tmp_path):
+    # query_pack=True: one packed-scorer call per pack; hit lists equal the
+    # JAX package's, and the padded cells count the packs' rows
+    rng = np.random.default_rng(31)
+    queries = [FastaRecord(f"q{i}", random_codes(rng, n))
+               for i, n in enumerate((40, 16, 61, 24, 9, 33))]
+    pt, pj = _mixed_db(tmp_path, queries)
+    got, metrics = _compare(pt, pj, queries, query_pack=True)
+    assert any(r.hits[0].title.endswith("planted_homolog") for r in got)
+    packs = qpack.build_query_packs(queries)
+    lanes = sum(ch.n_blocks * ch.L * ch.V for ch in pt.chunks)
+    assert metrics.padded_cells == lanes * sum(p.M for p in packs)
+    plain, _ = search(pt, queries, SearchConfig(top_k=8), device="cpu")
+    assert _hits(plain) == _hits(got)
+
+
+@pytest.mark.parametrize("k", [2, 5, 8, 40])
+def test_packed_search_ties_straddle_top_k(tmp_path, k):
+    rng = np.random.default_rng(32)
+    qs = [FastaRecord("qa", random_codes(rng, 24)),
+          FastaRecord("qb", random_codes(rng, 13))]
+    base = synth_db(6, seed=11, median_len=30, max_len=48)
+    recs = [FastaRecord(f"dup{i}", base[i % 3].codes) for i in range(30)]
+    recs += [FastaRecord("self", qs[0].codes)]
+    pt, pj = _db(tmp_path, recs)
+    got, _ = _compare(pt, pj, qs, top_k=k, gap_open=4, gap_extend=1,
+                      query_pack=True)
+    for r in got:
+        scores = [h.score for h in r.hits]
+        assert len(scores) == min(k, len(recs))
+        assert len(set(scores)) < len(scores) or k <= 2
+
+
+def test_packed_search_overlong_query_takes_per_length_path(tmp_path):
+    # one query that fits no pack sends the whole batch down the
+    # per-length path, as in the JAX package: padded cells say which ran
+    rng = np.random.default_rng(33)
+    long_len = qpack.PACK_BUCKETS[-1]
+    assert qpack._rows_needed(long_len) > qpack.PACK_BUCKETS[-1]
+    queries = [FastaRecord("short", random_codes(rng, 20)),
+               FastaRecord("overlong", random_codes(rng, long_len))]
+    recs = synth_db(24, seed=5, median_len=40, max_len=64)
+    pt, pj = _db(tmp_path, recs)
+    _, metrics = _compare(pt, pj, queries, top_k=4, query_pack=True)
+    lanes = sum(ch.n_blocks * ch.L * ch.V for ch in pt.chunks)
+    assert metrics.padded_cells == lanes * (32 + long_len)
+
+
+@pytest.mark.parametrize("qlen", [37, 2050])
+def test_score_db_matches_jax(tmp_path, qlen):
+    # the per-chunk API: one-pass chunk scorer for the short query, the
+    # query-tiled one (3 tiles of 1024 rows) for the 2,050-aa query
+    rng = np.random.default_rng(qlen)
+    q = FastaRecord("q", random_codes(rng, qlen))
+    recs = synth_db(40, seed=7, median_len=40, max_len=100)
+    recs[9] = FastaRecord("hom planted_homolog",
+                          mutate(rng, q.codes[:50], 0.1, 0.0))
+    pt, pj = _db(tmp_path, recs)
+    assert len(pt.chunks) > 1
+    got = score_db(pt, q, SearchConfig(), device="cpu")
+    ref = jengine.score_db(pj, JRecord(q.title, q.codes),
+                           jengine.SearchConfig(backend="xla"))
+    assert got.dtype == np.int32 and got.shape == (len(recs),)
+    assert np.array_equal(got, ref)
+    top = engine.top_k_hits(pt, got, 1)[0]
+    assert top.title == "hom planted_homolog"
+
+
+def test_device_chunks_are_views_of_the_stream(tmp_path):
+    pt, _ = _db(tmp_path, synth_db(50, seed=8, median_len=40, max_len=120))
+    tiles = engine.device_tiles(pt, "cpu")[0]
+    chunks = engine.device_chunks(pt, "cpu")
+    assert len(chunks) == len(pt.chunks)
+    for dev, ch in zip(chunks, pt.chunks):
+        assert dev.shape == (ch.n_blocks, ch.L, ch.V)
+        assert np.array_equal(dev.numpy(), np.asarray(ch.codes))
+    assert chunks[0].data_ptr() == tiles.data_ptr()
