@@ -9,12 +9,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      bit-exact, on small cases: the stream kernels on ragged cases (mixed
      block lengths, tied lanes, PAD runs, a ceiling, gap_extend=0, m = 8,
      16, 24, 40, 2048, 2064, a multi-tile long query with a small tile_m,
-     and the DB's longest block); the packed kernel on packs with a planted
+     and the DB's longest block, and for sw_ragged_kernel the shapes that
+     strain its cooperating workers, each with and without a ceiling:
+     one-tile blocks, m = 8, 32, 40, 72, 120, 136, 448, 2048, 64 lanes,
+     flat and free gaps); the packed kernel on packs with a planted
      homolog in the query just above another, a one-group query, a pack
      filled to its bucket, a pack with a large unused tail, gap_extend=0
      and gap_open=0; the chunk kernels at V = 128 and 64, m = 8, 40, 2048,
-     a ceiling, m = 2064 in 1024-row tiles, a small tile_m, and one
-     query-tile launch with random carries (--kernels-only stops here);
+     a ceiling, m = 2064 in 1024-row tiles, a small tile_m, one query-tile
+     launch with random carries, and the list form of the query-tile kernel
+     on separately allocated chunks of different B and L in one launch
+     (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -26,8 +31,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      per pack), hit lists equal to the per-query search's hit for hit;
   6. the chunk path: score_db for query 0 and for the 5,000-aa query, every
      lane's score equal to the stream kernels' over the resident stream,
-     their top 16 equal to the search's hits, one launch per chunk (per
-     chunk and query tile for the long query);
+     their top 16 equal to the search's hits, one launch per chunk (for
+     the long query: one per query tile over all chunks);
   7. exactness at scale: every reported hit rescored (numpy Gotoh oracle
      for three queries, the plain scorer on the gathered lanes for all),
      each query's top hit a planted homolog;
@@ -37,8 +42,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the widest pack over the whole stream; every chunk at query 0's m;
      the long query's third tile over every chunk with the second tile's
      carries in), their times beside their bounds (instruction rate
-     peak from the card's SM count and max clock), GCUPS, latencies, profiled 20-query
-     searches (kernel device time and the device's idle share); a
+     peak from the card's SM count and max clock), kernel 1's time without
+     the 100 longest blocks and on those alone, GCUPS, latencies, profiled
+     20-query searches (kernel device time and the device's idle share); a
      `kernels` JSON line, then the device JSON as the last line.
 
 Imports nothing of JAX or of the swimm_tpu package.
@@ -134,17 +140,30 @@ def compare_kernels(errs: dict) -> None:
     rng = np.random.default_rng(5)
     k1 = "sw_ragged_kernel"
     k2 = "sw_ragged_qtile_kernel"
-    cases = [  # (tile counts, m, gap_open, gap_extend, ceiling)
-        ([1, 3, 1, 5, 2], 8, 10, 2, None),
-        ([2, 1, 4], 16, 10, 2, None),
-        ([3, 1, 2], 24, 10, 1, None),
-        ([1, 2, 6], 40, 11, 1, None),
-        ([2, 5, 1, 3], 64, 10, 2, 40),
-        ([4, 2, 3], 96, 5, 0, None),
-        ([1, 3, 2], 2048, 10, 2, None),
+    cases = [  # (tile counts, V, m, gap_open, gap_extend, ceiling)
+        ([1, 3, 1, 5, 2], 128, 8, 10, 2, None),
+        ([2, 1, 4], 128, 16, 10, 2, None),
+        ([3, 1, 2], 128, 24, 10, 1, None),
+        ([1, 2, 6], 128, 40, 11, 1, None),
+        ([2, 5, 1, 3], 128, 64, 10, 2, 40),
+        ([4, 2, 3], 128, 96, 5, 0, None),
+        ([1, 3, 2], 128, 2048, 10, 2, None),
     ]
-    for counts, m, go, ge, ceil in cases:
-        tiles, outrow, n_rows = ragged_case(rng, counts)
+    # shapes that strain the workers of sw_ragged_kernel, each with and
+    # without a ceiling: blocks of one tile (shorter than a lock step),
+    # fewer strips than workers (m = 8, 32, 40), odd strip counts and 8-row
+    # tail strips (m = 72, 120, 136), 14 strips, the longest profile, 64
+    # lanes, flat and free gaps
+    for counts, V, m, go, ge, ceil in (
+            ([1, 1, 1], 128, 8, 10, 2, 12), ([1, 2], 128, 32, 10, 2, 25),
+            ([1, 3, 1], 128, 40, 10, 2, 25), ([1, 4, 2], 128, 72, 10, 2, 30),
+            ([2, 1, 3], 128, 120, 10, 2, 30), ([1, 3], 128, 136, 10, 2, 25),
+            ([1, 7, 2], 128, 448, 10, 2, 50), ([1, 7, 2], 64, 448, 10, 2, 50),
+            ([1, 2], 64, 2048, 10, 2, 60), ([2, 3], 128, 72, 5, 0, 20),
+            ([2, 3], 128, 72, 0, 3, 20), ([2, 3], 128, 72, 0, 0, 20)):
+        cases += [(counts, V, m, go, ge, None), (counts, V, m, go, ge, ceil)]
+    for counts, V, m, go, ge, ceil in cases:
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
         qp = profile(rng, m)
         got = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
                                  ceiling=ceil)
@@ -152,7 +171,7 @@ def compare_kernels(errs: dict) -> None:
                                      ceiling=ceil)
         torch.cuda.synchronize()
         errs[k1] = max(errs[k1], max_err(got, ref))
-        note(f"{k1} m={m} gaps={go}/{ge} ceiling={ceil}: "
+        note(f"{k1} V={V} m={m} gaps={go}/{ge} ceiling={ceil}: "
              f"max_abs_err={max_err(got, ref)}")
     # long queries: m=2064 in 1024-row tiles (3 launches), and m=200 in
     # 64-row tiles (4 launches), against the one-pass plain scorer
@@ -264,6 +283,33 @@ def compare_new_kernels(errs: dict) -> None:
         errs[k5] = max(errs[k5], max_err(got, ref))
         note(f"{k5} score_chunk_long V={V} m={m} tile_m={tile_m}: "
              f"max_abs_err={max_err(got, ref)}")
+    # the list form on separately allocated chunks of different B and L
+    # (B = 1, one 32-position tile, the longest neither first nor last):
+    # one launch per query tile, scores and both outgoing carries of every
+    # chunk against the plain one-tile step chunk by chunk
+    for V, m in ((128, 72), (64, 1024)):
+        clist = [chunk_case(rng, B, L, V)
+                 for B, L in ((2, 64), (1, 32), (3, 160), (1, 4480), (4, 96))]
+        hcs = [torch.randint(0, 60, c.shape, dtype=torch.int32,
+                             device="cuda") for c in clist]
+        fcs = [torch.randint(-80, 40, c.shape, dtype=torch.int32,
+                             device="cuda") for c in clist]
+        qp = profile(rng, m)
+        before = longquery.score_chunks_qtile.launches
+        got = longquery.score_chunks_qtile(
+            clist, qp, 10, 2, [h.clone() for h in hcs],
+            [f.clone() for f in fcs])
+        if longquery.score_chunks_qtile.launches != before + 1:
+            raise AssertionError(f"{k5}: the list form must be one launch")
+        e = 0
+        for i, c in enumerate(clist):
+            ref = longquery.score_chunk_qtile_ref(c, qp, 10, 2, hcs[i],
+                                                  fcs[i])
+            e = max([e] + [max_err(g[i], r) for g, r in zip(got, ref)])
+        torch.cuda.synchronize()
+        errs[k5] = max(errs[k5], e)
+        note(f"{k5} list of {len(clist)} separate chunks V={V} m={m}, "
+             f"random carries in, scores + carries out: max_abs_err={e}")
     # one launch with carries in and out vs the plain one-tile step
     codes = chunk_case(rng, 3, 128, 128)
     hc = torch.randint(0, 60, codes.shape, dtype=torch.int32, device="cuda")
@@ -460,7 +506,7 @@ def main(argv=None) -> int:
                 "sw_ragged_qtile_kernel": longquery.score_qtile,
                 "sw_ragged_packed_kernel": scorer.score_tiles_packed,
                 "sw_chunk_kernel": scorer.score_chunk,
-                "sw_chunk_qtile_kernel": longquery.score_chunk_qtile}
+                "sw_chunk_qtile_kernel": longquery.score_chunks_qtile}
     launches = dict.fromkeys(counters, 0)
 
     def counted(fn):
@@ -602,9 +648,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     vec_l, seen = counted(lambda: score_db(packed, long_q, config))
     db_long_s = time.perf_counter() - t
-    if seen["sw_chunk_qtile_kernel"] != n_chunks * n_qt:
-        raise AssertionError(f"expected {n_chunks * n_qt} chunk query-tile "
-                             f"launches, got {seen}")
+    if seen["sw_chunk_qtile_kernel"] != n_qt:
+        raise AssertionError(f"expected {n_qt} chunk query-tile launches "
+                             f"(one per tile over all {n_chunks} chunks), "
+                             f"got {seen}")
     check_score_vector(packed, "long query", vec_l,
                        longquery.score_tiles_long(
                            tiles, outrow, n_rows, qp_l, 10, 2,
@@ -647,6 +694,22 @@ def main(argv=None) -> int:
          f"max_abs_err={e1}")
     del got1, ref1
     b1, b1_by = walk_bound(m1, 4 * n_rows * V)
+    # how much of kernel 1's time is the tail of long blocks: the stream
+    # without its 100 longest blocks (the last rows), and those alone
+    cut = n_rows - 100
+    tc = int(row_start[cut].item())
+    rs_head = row_start[:cut + 1].contiguous()
+    or_tail = (outrow[tc:] - cut).contiguous()
+    rs_tail = (row_start[cut:] - tc).contiguous()
+    k1_tail = {
+        "tiles_without_100_longest": tc, "tiles": T,
+        "ms_without_100_longest": cuda_ms(lambda: scorer.score_tiles(
+            tiles[:tc], outrow[:tc], cut, qp1, 10, 2, row_start=rs_head)),
+        "ms_100_longest_alone": cuda_ms(lambda: scorer.score_tiles(
+            tiles[tc:], or_tail, 100, qp1, 10, 2, row_start=rs_tail))}
+    note(f"sw_ragged_kernel without the 100 longest blocks ({tc} of {T} "
+         f"tiles): {k1_tail['ms_without_100_longest']:.3f} ms; those 100 "
+         f"alone: {k1_tail['ms_100_longest_alone']:.3f} ms")
     # kernel 2 on the long query's first two 1024-row tiles: fresh carries
     # in, then the first tile's carries in; the kernel updates its carries
     # in place, so it gets clones and the plain version the originals
@@ -723,23 +786,25 @@ def main(argv=None) -> int:
     spans = np.cumsum([0] + [c.shape[0] * c.shape[1] // jt for c in chunks])
     car = [(hc[a:b].view(c.shape), fc[a:b].view(c.shape))
            for c, a, b in zip(chunks, spans[:-1], spans[1:])]
-    got5 = [longquery.score_chunk_qtile(c, qp5, 10, 2, h.clone(), f.clone())
-            for c, (h, f) in zip(chunks, car)]
+    table = engine.device_chunk_table(packed)[1]
+    got5 = longquery.score_chunks_qtile(
+        chunks, qp5, 10, 2, [h.clone() for h, _ in car],
+        [f.clone() for _, f in car], table)
     p5_ms, ref5 = timed(
         lambda: [longquery.score_chunk_qtile_ref(c, qp5, 10, 2, h, f)
                  for c, (h, f) in zip(chunks, car)])
-    e5 = max(max_err(g, r) for gs, rs in zip(got5, ref5)
-             for g, r in zip(gs, rs))
+    e5 = max(max_err(g[i], r) for i, rs in enumerate(ref5)
+             for g, r in zip(got5, rs))
     errs["sw_chunk_qtile_kernel"] = max(errs["sw_chunk_qtile_kernel"], e5)
-    note(f"sw_chunk_qtile_kernel vs plain, all {n_chunks} chunks, query "
-         f"tile 2: scores + both carries max_abs_err={e5}")
+    note(f"sw_chunk_qtile_kernel vs plain, all {n_chunks} chunks in one "
+         f"launch, query tile 2: scores + both carries max_abs_err={e5}")
     del ref5
-    k5_ms = cuda_ms(lambda: [   # in place on the carries just compared
-        longquery.score_chunk_qtile(c, qp5, 10, 2, h, f)
-        for c, (_, h, f) in zip(chunks, got5)])
+    k5_ms = cuda_ms(lambda: longquery.score_chunks_qtile(  # in place on
+        chunks, qp5, 10, 2, got5[1], got5[2], table),      # those carries
+        reps=3)
     del got5
-    b5, b5_by = bound(tiles.numel() + n_chunks * 4 * 32 * tm
-                      + 4 * n_rows * V + 16 * lanes_pos,
+    b5, b5_by = bound(tiles.numel() + 4 * 32 * tm + 48 * n_chunks
+                      + 8 * n_rows + 4 * n_rows * V + 16 * lanes_pos,
                       OPS_PER_CELL * lanes_pos * tm, int_rate)
     phases["full_size_k5_s"] = time.perf_counter() - t
 
@@ -763,8 +828,8 @@ def main(argv=None) -> int:
          "chunks"),
         ("sw_chunk_qtile_kernel", "sw_chunk.cu",
          "swimm_tpu/ops/longquery.py:126", k5_ms, p5_ms, b5, b5_by,
-         f"{n_chunks} chunks, {n_rows} blocks, V={V} tile_m={tm}; ms over "
-         "all chunks"),
+         f"{n_chunks} chunks, {n_rows} blocks, V={V} tile_m={tm}; one "
+         "launch over all chunks"),
     ]
     kernels = [
         {"name": name, "route": "cuda",
@@ -797,6 +862,7 @@ def main(argv=None) -> int:
                      "padded_gcups": long_met.padded_gcups},
         "score_db": {"query0_s": db_short_s, "long5000_s": db_long_s,
                      "chunks": n_chunks},
+        "kernel1_tail": k1_tail,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

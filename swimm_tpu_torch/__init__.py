@@ -5,8 +5,8 @@ The PyTorch/CUDA counterpart of the ``swimm_tpu`` package, module for
 module: the packed-DB format, the whole-DB resident search path (one launch
 per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
 the per-chunk scoring API ``score_db`` and their five hand-written kernels
-(csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walk of
-csrc/sw_walk.cuh), bit-exact with ``swimm_tpu``. Imports torch and numpy
+(csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
+csrc/sw_walk.cuh and csrc/sw_walk_hg.cuh), bit-exact with ``swimm_tpu``. Imports torch and numpy
 only. Entry points run on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
@@ -17,7 +17,9 @@ only. Entry points run on 'cuda' unless given device='cpu'.
                      score_tiles_packed -> sw_ragged_packed_kernel
                      score_chunk        -> sw_chunk_kernel
   ops.longquery      score_tiles_long   -> sw_ragged_qtile_kernel
-                     score_chunk_long   -> sw_chunk_qtile_kernel
+                     score_chunks_long  -> sw_chunk_qtile_kernel (a list of
+                                           chunks per launch; score_chunk_long
+                                           is its one-chunk case)
   db / fasta / ...   packed DB format v1, FASTA, matrices, alphabet
 """
 

@@ -1,11 +1,15 @@
 // Exact Smith-Waterman / Gotoh scores over the whole-DB ragged tile stream.
 //
-// Three kernels share the strip walk of sw_walk.cuh (layout, recurrence,
-// strip-mining and the bound on the card are described there):
+// Layout, recurrence, strip-mining and the bound on the card are described
+// in sw_walk.cuh, whose strip walk the last two of these three kernels
+// share:
 //
 //   sw_ragged_kernel        replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_ragged_kernel (via score_tiles): a query of
-//                           at most 2048 padded rows against every block.
+//                           at most 2048 padded rows against every block,
+//                           two workers to a block on the walk of
+//                           sw_walk_hg.cuh (what bounded it on the card and
+//                           what that design does about it are told there).
 //   sw_ragged_qtile_kernel  replaces swimm_tpu/ops/longquery.py
 //                           _dp_ragged_tile_kernel (via _score_tiles_one_qtile):
 //                           one query tile of a long query, with the H/F
@@ -51,6 +55,7 @@
 #include <climits>
 
 #include "sw_walk.cuh"
+#include "sw_walk_hg.cuh"
 
 namespace {
 
@@ -76,25 +81,26 @@ __device__ __forceinline__ int64_t block_span(
 
 // Kernel 1: whole query, optional saturating ceiling (H clamped at
 // ceiling; a lane whose exact score reaches the ceiling reports exactly
-// ceiling). ch/cf are scratch (unused when m fits one strip).
-__global__ void sw_ragged_kernel(const int8_t* __restrict__ tiles,
-                                 const int64_t* __restrict__ row_start,
-                                 int V, int jt, const int* __restrict__ qp,
-                                 int m, int goe, int ge, int has_ceiling,
-                                 int ceiling, int* ch, int* cf,
-                                 int* __restrict__ out) {
-  int64_t npos;
+// ceiling): two kernels chosen by the launcher, not one branch, so neither
+// carries the other's registers. blockDim.x / V workers share one DB block
+// (sw_walk_hg.cuh); carry is scratch, one (hg, F) pair per (db position,
+// lane), unused when every strip has a worker of its own. At most
+// HG_MAX_THREADS threads, so at most 128 registers.
+template <bool CEIL>
+__global__ void __launch_bounds__(HG_MAX_THREADS, 1)
+sw_ragged_kernel(const int8_t* __restrict__ tiles,
+                 const int64_t* __restrict__ row_start, int V, int jt,
+                 const int* __restrict__ qp, int m, int goe, int ge,
+                 int ceiling, int2* carry, int* __restrict__ out) {
+  extern __shared__ int smem[];
   const int row = block_row();
-  const int64_t base = block_span(row_start, row, jt, V, &npos);
-  int* chb = ch ? ch + base : nullptr;
-  int* cfb = cf ? cf + base : nullptr;
-  const int smax =
-      has_ceiling
-          ? walk_block<true>(tiles + base, npos, V, qp, m, goe, ge, ceiling,
-                             chb, cfb, false, false)
-          : walk_block<false>(tiles + base, npos, V, qp, m, goe, ge, 0, chb,
-                              cfb, false, false);
-  out[(int64_t)row * V + threadIdx.x] = smax;
+  const int64_t t0 = row_start[row];
+  const int npos = static_cast<int>(row_start[row + 1] - t0) * jt;
+  const int64_t base = t0 * jt * V;
+  const int smax = hg_walk_block<CEIL>(tiles + base, npos, V, qp, m, goe, ge,
+                                       ceiling, carry ? carry + base : nullptr,
+                                       smem);
+  if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
 }
 
 // Kernel 2: one query tile of tile_m rows; ch/cf hold the row above the
@@ -181,21 +187,45 @@ __global__ void sw_ragged_packed_kernel(
   }
 }
 
+template <bool CEIL>
+int launch_ragged(const void* tiles, const void* row_start, int n_rows, int V,
+                  int jt, const void* qp, int m, int goe, int ge, int ceiling,
+                  void* carry, void* out, void* stream) {
+  // workers per DB block: as many as HG_MAX_WORKERS, the thread limit and
+  // the strip count allow; workers synchronise by warps, so lanes that do
+  // not fill whole warps get one
+  int workers = HG_MAX_THREADS / V < HG_MAX_WORKERS ? HG_MAX_THREADS / V
+                                                    : HG_MAX_WORKERS;
+  const int n_strips = m / STRIP + (m % STRIP) / STRIP_TAIL;
+  if (workers > n_strips) workers = n_strips;
+  if (workers < 1 || V % 32) workers = 1;
+  const size_t shared = hg_shared_ints(workers, V) * sizeof(int);
+  const cudaError_t err = cudaFuncSetAttribute(
+      sw_ragged_kernel<CEIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw_ragged_kernel<CEIL><<<n_rows, workers * V, shared,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, goe, ge, ceiling,
+      static_cast<int2*>(carry), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sw_ragged_launch(const void* tiles, const void* row_start,
                                 int n_rows, int V, int jt, const void* qp,
                                 int m, int goe, int ge, int has_ceiling,
-                                int ceiling, void* ch, void* cf, void* out,
+                                int ceiling, void* carry, void* out,
                                 void* stream) {
-  if (n_rows > 0) {
-    sw_ragged_kernel<<<n_rows, V, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(tiles),
-        static_cast<const int64_t*>(row_start), V, jt,
-        static_cast<const int*>(qp), m, goe, ge, has_ceiling, ceiling,
-        static_cast<int*>(ch), static_cast<int*>(cf), static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  return has_ceiling
+             ? launch_ragged<true>(tiles, row_start, n_rows, V, jt, qp, m, goe,
+                                   ge, ceiling, carry, out, stream)
+             : launch_ragged<false>(tiles, row_start, n_rows, V, jt, qp, m,
+                                    goe, ge, 0, carry, out, stream);
 }
 
 extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,

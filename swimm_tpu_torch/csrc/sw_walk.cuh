@@ -1,6 +1,7 @@
-// Strip walk shared by every Smith-Waterman / Gotoh kernel of the package
-// (sw_ragged.cu over the whole-DB tile stream, sw_chunk.cu over one
-// rectangular chunk).
+// Strip walk shared by four of the package's five Smith-Waterman / Gotoh
+// kernels (sw_ragged.cu over the whole-DB tile stream, sw_chunk.cu over
+// rectangular chunks); sw_ragged_kernel has the walk of sw_walk_hg.cuh,
+// which shares this file's layout, recurrence and constants.
 //
 // Layout. A block of the database is one contiguous (npos, V) int8 array:
 // npos db positions of V lanes (sequences). One CUDA block per DB block,

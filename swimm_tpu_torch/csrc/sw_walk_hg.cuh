@@ -1,0 +1,241 @@
+// The walk of sw_ragged_kernel (sw_ragged.cu), which replaces
+// swimm_tpu/ops/pallas_scorer.py _dp_ragged_kernel (via score_tiles): the
+// recurrence of sw_walk.cuh, rewritten for what bounds it on an H100 and
+// worked by cooperating workers per DB block. The other four kernels keep
+// the walk of sw_walk.cuh.
+//
+// What bounds it. Measured on an NVIDIA H100 80GB HBM3 at 700 W: VIADDMNMX
+// and VIMNMX3 start at 62 thread-instructions per clock per SM, half of
+// what the schedulers can start, VIMNMX at 119, and all three share one
+// pipe; additions go elsewhere and overlap them. A warp starts its
+// instructions in order, so a lone warp of the walk of sw_walk.cuh
+// advanced one row in ~34 clocks: its F chain is three to four dependent
+// instructions per row (H, H - goe, max, F - ge). Sixteen warps per SM hid
+// only half of that, and the longest DB block, walked by four warps from
+// start to end, took two thirds of the whole launch on its own. The
+// kernel is bound by the latency between dependent instructions and by
+// the half-rate pipe, not by device memory: 43 GB of carries per launch
+// cost a tenth of its time.
+//
+// The recurrence. The registers hold hg = H - goe, not H: it is what E at
+// the next column and F at the next row read. The strip's profile is
+// staged with goe already added, so the diagonal term is still one
+// addition: (H(i-1,j-1) - goe) + (S + goe) = H(i-1,j-1) + S. H = 0 on the
+// row and the column before the matrix is hg = -goe. With
+//   t0 = max(H(i-1,j-1) + S, E, 0)      (H without its F term)
+// and gap_open >= 0 (so F - goe <= F - ge), F's own recurrence needs no H:
+//   F(i+1,j) = max(H - goe, F - ge) = max(t0 - goe, F - ge),
+// one instruction per row on the chain; everything else hangs off it:
+//   en  = __viaddmax_s32(e, -ge, hg_left)            E        VIADDMNMX
+//   t0  = __viaddmax_s32_relu(hg_diag, S + goe, en)           VIADDMNMX.RELU
+//   t0g = t0 - goe                                            VIADD
+//   hg  = __viaddmax_s32(f, -goe, t0g)               H - goe  VIADDMNMX
+//   f   = __viaddmax_s32(f, -ge, t0g)                F below  VIADDMNMX
+//   smax = __vimax3_s32(smax, t0, t0')               2 rows   VIMNMX3
+// and one shared-memory load: 6.5 instructions per cell, the count of the
+// bound. The running maximum is of t0, not of H: an H that comes from F is
+// below the H its gap opened from. The ceiling clamps t0 (F <= ceiling -
+// goe follows), one more instruction per cell, in a kernel of its own.
+// Writing hg as max(t0, f) - goe (two full-rate instructions for one
+// half-rate) was 4% slower: instruction slots weigh more than the pipe.
+//
+// Cooperating workers. A CUDA block of S * V threads takes one DB block;
+// worker k (V threads, one per lane) takes strips k, k + S, ... and runs one
+// step of D db positions behind worker k - 1, which hands it the strip's
+// bottom row (hg, and the F entering the next row) through a two-slot ring
+// in shared memory; only the last worker's bottom row goes to the carry
+// stream in device memory, from where worker 0 reads it a round later, so
+// those bytes fall by S and a long block is walked by S times the warps.
+// All workers step together: one __syncthreads per D positions (every
+// producer-consumer pair is one step apart, so two slots per boundary are
+// enough). Worker k works item i = t - k at step t; an item is (round,
+// step within the round), a round lasts max(ceil(npos / D), S) steps so
+// that worker 0 never reads a carry that the last worker has not written.
+// With S == 1 a strip is one step of npos positions and nothing
+// synchronises but the staging of the profile.
+//
+// S, D and the rest, by measurement on that card (whole-DB stream of
+// 50,873 tiles, m = 448; the walk of sw_walk.cuh: 51.8 ms): S = 1 40.4 ms,
+// S = 2 35.6, S = 4 41.5 (14 strips leave two of 16 worker slots idle, and
+// a 512-thread block leaves no second block on the SM); D = 16 37.9, D = 32
+// 35.6, D = 48 35.9; loads 1, 2, 4 positions ahead 37.2 (before the last
+// change to the recurrence), 35.6, 37.9 (registers); 16-row strips (64
+// registers, twice the warps) 41.9 with S = 4 and 77.7 with S = 1, where
+// the doubled carry traffic does bind. 120-128 registers under
+// __launch_bounds__(512, 1): two blocks of 256 threads per SM.
+
+#pragma once
+
+#include "sw_walk.cuh"
+
+namespace sw {
+
+constexpr int HG_STEP = 32;         // D: db positions per lock step (S > 1)
+constexpr int HG_AHEAD = 2;         // positions the loads run ahead
+constexpr int HG_MAX_WORKERS = 2;   // S at most
+constexpr int HG_MAX_THREADS = 512; // S * V at most
+
+// Shared memory of a block of `workers` workers of V lanes, in ints: one
+// staged profile strip per worker, then two ring slots of HG_STEP x V
+// (hg, F) pairs per boundary between neighbouring workers (at least room
+// for the final reduction of the workers' maxima).
+__host__ __device__ inline size_t hg_shared_ints(int workers, int V) {
+  const size_t ring = (size_t)(workers - 1) * 2 * HG_STEP * V * 2;
+  const size_t red = workers > 1 ? (size_t)workers * V : 0;
+  return (size_t)workers * STRIP * TABLE_CODES + (ring > red ? ring : red);
+}
+
+// Barrier over the V threads of worker k (the whole block when it is the
+// only worker).
+__device__ __forceinline__ void worker_sync(int k, int V, int workers) {
+  if (workers == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(k + 1), "r"(V) : "memory");
+  }
+}
+
+// One step of a strip of R rows for one lane: n db positions from `codes`
+// (stride V). top/bot point at this lane's first (hg, F) pair of the row
+// above / of this strip's bottom row (stride V; shared or device memory),
+// or are null: no row above (H = 0, F = NEG), nothing below. hg/e/diag_top
+// carry the strip's state from step to step. As in sw_walk.cuh the loads of
+// a position's code and top pair are started ahead of its turn, here
+// HG_AHEAD positions.
+template <int R, bool CEIL>
+__device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
+                                        int& diag_top, int& smax,
+                                        const int8_t* __restrict__ codes,
+                                        int n, int V,
+                                        const int* __restrict__ prof,
+                                        const int2* top, int2* bot, int goe,
+                                        int nge, int ceiling) {
+  int code_q[HG_AHEAD];
+  int2 top_q[HG_AHEAD];
+#pragma unroll
+  for (int a = 0; a < HG_AHEAD; ++a) {
+    code_q[a] = 0;
+    top_q[a] = make_int2(-goe, NEG);
+    if (a < n) {
+      code_q[a] = codes[(int64_t)a * V];
+      if (top) top_q[a] = top[(int64_t)a * V];
+    }
+  }
+  for (int j = 0; j < n; ++j) {
+    const int code = code_q[0] & (TABLE_CODES - 1);
+    int diag = diag_top;
+    diag_top = top_q[0].x;
+    int f = top_q[0].y;
+#pragma unroll
+    for (int a = 0; a + 1 < HG_AHEAD; ++a) {
+      code_q[a] = code_q[a + 1];
+      top_q[a] = top_q[a + 1];
+    }
+    if (j + HG_AHEAD < n) {
+      code_q[HG_AHEAD - 1] = codes[(int64_t)(j + HG_AHEAD) * V];
+      if (top) top_q[HG_AHEAD - 1] = top[(int64_t)(j + HG_AHEAD) * V];
+    }
+    const int* __restrict__ col = prof + code;
+    int tprev = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int en = __viaddmax_s32(e[r], nge, hg[r]);
+      int t0 = __viaddmax_s32_relu(diag, col[r * TABLE_CODES], en);
+      if (CEIL) t0 = min(t0, ceiling);
+      if (r & 1) {
+        smax = __vimax3_s32(smax, tprev, t0);
+      } else {
+        tprev = t0;
+      }
+      const int t0g = t0 - goe;
+      diag = hg[r];
+      hg[r] = __viaddmax_s32(f, -goe, t0g);
+      e[r] = en;
+      f = __viaddmax_s32(f, nge, t0g);
+    }
+    if (bot) bot[(int64_t)j * V] = make_int2(hg[R - 1], f);
+  }
+}
+
+// Walk every strip of an m-row query over one DB block of npos positions
+// with blockDim.x / V workers. codes points at the block's first position,
+// carry at its first (hg, F) pair in the device-memory carry stream (used
+// when there are more strips than workers), smem at hg_shared_ints() ints.
+// Returns the lane's maximum H in the threads of worker 0.
+template <bool CEIL>
+__device__ __forceinline__ int hg_walk_block(
+    const int8_t* __restrict__ codes, int npos, int V,
+    const int* __restrict__ qp, int m, int goe, int ge, int ceiling,
+    int2* carry, int* smem) {
+  const int S = blockDim.x / V;
+  const int k = threadIdx.x / V;
+  const int v = threadIdx.x - k * V;
+  const int n_full = m / STRIP;
+  const int n_strips = n_full + (m % STRIP) / STRIP_TAIL;
+  const int D = S == 1 ? npos : HG_STEP;     // positions per step
+  const int nc = S == 1 ? 1 : (npos + D - 1) / D;
+  const int P = nc > S ? nc : S;             // steps per round
+  const int n_rounds = (n_strips + S - 1) / S;
+  const int n_items = n_rounds * P;
+  int* prof = smem + k * (STRIP * TABLE_CODES);
+  int2* ring = reinterpret_cast<int2*>(smem + S * (STRIP * TABLE_CODES));
+  const int slot = HG_STEP * V;              // pairs per ring slot
+
+  int hg[STRIP], e[STRIP];
+  int diag_top = -goe, smax = 0;
+  int s = 0, r0 = 0, rows = 0;               // this worker's current strip
+  for (int t = 0; t < n_items + S - 1; ++t) {
+    const int i = t - k;
+    const int round = i / P;
+    const int c = i - round * P;
+    if (i >= 0 && i < n_items && round * S + k < n_strips && c < nc) {
+      if (c == 0) {                          // a new strip for this worker
+        s = round * S + k;
+        rows = s < n_full ? STRIP : STRIP_TAIL;
+        r0 = s < n_full ? s * STRIP
+                        : n_full * STRIP + (s - n_full) * STRIP_TAIL;
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) {
+          hg[r] = -goe;
+          e[r] = NEG;
+        }
+        diag_top = -goe;
+        worker_sync(k, V, S);                // previous strip done with prof
+        for (int idx = v; idx < rows * TABLE_CODES; idx += V) {
+          const int r = idx / TABLE_CODES;
+          const int cc = idx % TABLE_CODES;
+          prof[idx] = qp[(int64_t)cc * m + r0 + r] + goe;
+        }
+        worker_sync(k, V, S);
+      }
+      const int p0 = c * D;
+      const int n = npos - p0 < D ? npos - p0 : D;
+      const int64_t off = (int64_t)p0 * V + v;
+      const int2* top = nullptr;
+      if (s > 0)
+        top = k > 0 ? ring + ((k - 1) * 2 + ((t - 1) & 1)) * slot + v
+                    : carry + off;
+      int2* bot = nullptr;
+      if (s < n_strips - 1)
+        bot = k < S - 1 ? ring + (k * 2 + (t & 1)) * slot + v : carry + off;
+      if (rows == STRIP) {
+        hg_step<STRIP, CEIL>(hg, e, diag_top, smax, codes + off, n, V, prof,
+                             top, bot, goe, -ge, ceiling);
+      } else {
+        hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, smax, codes + off, n, V,
+                                  prof, top, bot, goe, -ge, ceiling);
+      }
+    }
+    if (S > 1) __syncthreads();
+  }
+  if (S > 1) {                               // fold the workers' maxima
+    int* red = reinterpret_cast<int*>(ring);
+    red[k * V + v] = smax;
+    __syncthreads();
+    if (k == 0)
+      for (int w = 1; w < S; ++w) smax = max(smax, red[w * V + v]);
+  }
+  return smax;
+}
+
+}  // namespace sw

@@ -12,7 +12,8 @@ With SearchConfig(query_pack=True) the batch is packed along the query
 axis instead (models/qpack.py): one launch of the packed kernel per pack
 scores up to 24 queries at once into per-query planes, and one top-k runs
 over all planes. score_db is the per-chunk API: every lane's score for one
-query, one launch per chunk (per query tile and chunk for a long query).
+query, one launch per chunk (for a long query: one launch per query tile
+over all chunks).
 
 Entry points run on 'cuda' unless the caller passes device='cpu' (the plain
 PyTorch scorers). With no card and no device='cpu' they raise; they never
@@ -208,6 +209,22 @@ def device_chunks(packed: PackedDb, device=None) -> list:
     return out
 
 
+def device_chunk_table(packed: PackedDb, device=None):
+    """(device_chunks, their scorer.ChunkTable) — the block map and chunk
+    descriptors that let one launch take every chunk — built once per
+    (PackedDb, device) and cached beside device_tiles' entry. (None, None)
+    for a DB without chunks."""
+    dev = resolve_device(device)
+    device_tiles(packed, dev)              # uploads, or raises if too large
+    per_db = _DEVICE_TILE_CACHE[packed]
+    key = f"{dev}/chunk_table"
+    if key not in per_db:
+        chunks = device_chunks(packed, dev)
+        per_db[key] = ((chunks, scorer.ChunkTable(chunks)) if chunks
+                       else (None, None))
+    return per_db[key]
+
+
 def group_by_m_pad(queries, m_multiple: int) -> dict:
     """{padded profile length: [positions]} — one dispatch group each."""
     groups: dict = {}
@@ -363,17 +380,32 @@ def search_fused(packed: PackedDb, query: FastaRecord, config: SearchConfig,
 
 
 def _chunk_scorer(config: SearchConfig):
-    """codes (B, L, V), qp (32, m) -> (B, V) scores: the one-pass chunk
-    kernel up to max_query_pad() rows, else the query-tiled one."""
+    """chunks, their ChunkTable, qp (32, m) -> list of (B, V) scores: the
+    one-pass chunk kernel, one launch per chunk, up to max_query_pad()
+    rows; else the query-tiled one, one launch per query tile over all the
+    chunks, which raises if the carries of all chunks (8 bytes per code
+    byte) would not fit in the device memory that is free or held unused
+    by PyTorch's allocator."""
     prec = kernel_precision(config)
 
-    def dispatch(codes, qp):
-        if qp.shape[1] > scorer.max_query_pad():
-            return longquery.score_chunk_long(
-                codes, qp, config.gap_open, config.gap_extend,
-                precision=prec)
-        return scorer.score_chunk(codes, qp, config.gap_open,
-                                  config.gap_extend, precision=prec)
+    def dispatch(chunks, table, qp):
+        if qp.shape[1] <= scorer.max_query_pad():
+            return [scorer.score_chunk(codes, qp, config.gap_open,
+                                       config.gap_extend, precision=prec)
+                    for codes in chunks]
+        dev = table.device
+        if dev.type == "cuda":
+            free = (torch.cuda.mem_get_info(dev)[0]
+                    + torch.cuda.memory_reserved(dev)
+                    - torch.cuda.memory_allocated(dev))
+            need = 8 * table.numel
+            if need > free:
+                raise RuntimeError(
+                    f"the long query's carries need {need / 1e9:.2f} GB of "
+                    f"device memory but {free / 1e9:.2f} GB is free")
+        return longquery.score_chunks_long(
+            chunks, qp, config.gap_open, config.gap_extend, precision=prec,
+            table=table)
 
     return dispatch
 
@@ -381,19 +413,19 @@ def _chunk_scorer(config: SearchConfig):
 def score_db(packed: PackedDb, query: FastaRecord,
              config: SearchConfig | None = None, device=None) -> np.ndarray:
     """All-lane scores for one query, in sorted-db order (n_seqs,) int32:
-    one scorer call per chunk, all launched before the one synchronising
-    device-to-host copy."""
+    one scorer call per chunk (a long query: one per query tile over all
+    chunks), all launched before the one synchronising device-to-host
+    copy."""
     config = config or SearchConfig()
     check_supported(config)
-    chunks = device_chunks(packed, device)
+    chunks, table = device_chunk_table(packed, device)
     out = np.zeros(packed.n_seqs, dtype=np.int32)
     if not chunks:
         return out
     qp = torch.from_numpy(build_query_profile(
-        query.codes, config.matrix, config.m_multiple)).to(chunks[0].device)
-    score = _chunk_scorer(config)
-    flat = torch.cat([score(codes, qp).reshape(-1)
-                      for codes in chunks]).cpu().numpy()
+        query.codes, config.matrix, config.m_multiple)).to(table.device)
+    flat = torch.cat([s.reshape(-1) for s in _chunk_scorer(config)(
+        chunks, table, qp)]).cpu().numpy()
     lane0 = 0
     for ch in packed.chunks:
         out[ch.base:ch.base + ch.n_seqs] = flat[lane0:lane0 + ch.n_seqs]

@@ -11,7 +11,9 @@ runs its plain PyTorch version (``*_ref``) on a CPU tensor:
   score_chunk         sw_chunk_kernel          (csrc/sw_chunk.cu)
 
 There is no fallback from one to the other: a CUDA tensor either reaches
-the kernel or raises.
+the kernel or raises. ``ChunkTable`` is what a chunk kernel needs to take
+a list of chunks in one launch (sw_chunk_qtile_kernel, through
+ops/longquery.py, does).
 
 The plain versions share ``walk_ref``, the column-vectorised two-pass
 recurrence of xla_scorer.score_tiles in int32: per db position,
@@ -28,6 +30,7 @@ from __future__ import annotations
 import bisect
 import ctypes
 
+import numpy as np
 import torch
 
 NEG = -(1 << 28)   # same floor as the CUDA kernels (csrc/sw_ragged.cu)
@@ -196,7 +199,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 RAGGED_SIGNATURES = {
     "sw_ragged_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT, _INT,
-                         _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR],
+                         _INT, _INT, _INT, _PTR, _PTR, _PTR],
     "sw_ragged_qtile_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR, _PTR],
     "sw_ragged_packed_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
@@ -206,8 +209,8 @@ RAGGED_SIGNATURES = {
 CHUNK_SIGNATURES = {
     "sw_chunk_launch": [_PTR, _INT, _INT, _INT, _PTR, _INT, _INT, _INT,
                         _INT, _INT, _PTR, _PTR, _PTR, _PTR],
-    "sw_chunk_qtile_launch": [_PTR, _INT, _INT, _INT, _PTR, _INT, _INT,
-                              _INT, _PTR, _PTR, _PTR, _PTR],
+    "sw_chunk_qtile_launch": [_PTR, _PTR, _PTR, _INT, _INT, _PTR, _INT,
+                              _INT, _INT, _PTR],
 }
 
 
@@ -290,11 +293,16 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
     T, jt, V = tiles.shape
     m = qp.shape[1]
     out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
-    ch, cf = strip_scratch(m, tiles)
+    # carry scratch between strips: one (H - goe, F) int32 pair per (db
+    # position, lane); a one-strip profile needs none
+    carry = None
+    if m > 8:
+        carry = torch.empty((T, jt, V, 2), dtype=torch.int32,
+                            device=tiles.device)
     err = kernels().sw_ragged_launch(
         tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
         qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
-        int(ceiling is not None), int(ceiling or 0), _ptr(ch), _ptr(cf),
+        int(ceiling is not None), int(ceiling or 0), _ptr(carry),
         out.data_ptr(), torch.cuda.current_stream(tiles.device).cuda_stream)
     raise_on(err, "sw_ragged_kernel")
     score_tiles.launches += 1
@@ -415,6 +423,83 @@ def check_chunk(codes, qp) -> None:
         raise ValueError("codes and qp must share a device")
     if not (codes.is_contiguous() and qp.is_contiguous()):
         raise ValueError("codes and qp must be contiguous")
+
+
+class ChunkTable:
+    """What a chunk kernel that takes a LIST of chunks in one launch needs
+    beside the chunks: built once for a list of (B, L, V) int8 chunk
+    tensors (any allocations, one device, one V) and reused for every
+    launch over them.
+
+      block_map  (n_blocks, 2) int32 on the device: CUDA block -> (chunk,
+                 block within the chunk), longest L first (stable: equal
+                 lengths stay in list order), so the long blocks start at
+                 once and the short ones fill in behind them;
+      codes0     the lowest codes address of the list (the kernel addresses
+                 every chunk's codes from it);
+      out_views, carry_views  per-chunk views of a flat (n_blocks, V)
+                 output and of a flat carry buffer of ``numel`` elements,
+                 for callers that allocate those once for the whole list;
+      bind()     the device table of descriptors for one call.
+    """
+
+    def __init__(self, chunks):
+        if not chunks:
+            raise ValueError("a chunk table needs at least one chunk")
+        first = chunks[0]
+        for c in chunks:
+            if c.dim() != 3 or c.dtype != torch.int8 or not c.is_contiguous():
+                raise ValueError("every chunk must be a contiguous (B, L, V) "
+                                 "int8 tensor")
+            if c.shape[2] != first.shape[2] or c.device != first.device:
+                raise ValueError("all chunks of a list must share V and the "
+                                 "device")
+        self.chunks = list(chunks)       # keeps the addresses alive
+        self.device = first.device
+        self.V = int(first.shape[2])
+        B = np.array([c.shape[0] for c in chunks], dtype=np.int64)
+        L = np.array([c.shape[1] for c in chunks], dtype=np.int64)
+        self.first_block = np.concatenate([[0], np.cumsum(B)])
+        self.first_pos = np.concatenate([[0], np.cumsum(B * L * self.V)])
+        self.n_blocks = int(self.first_block[-1])
+        self.numel = int(self.first_pos[-1])
+        chunk_of = np.repeat(np.arange(len(chunks)), B)
+        within = np.arange(self.n_blocks) - self.first_block[chunk_of]
+        order = np.argsort(-L[chunk_of], kind="stable")
+        self.block_map = torch.from_numpy(np.stack(
+            [chunk_of[order], within[order]], axis=1).astype(np.int32)).to(
+                self.device)
+        # rows of csrc/sw_chunk.cu's ChunkDesc: codes, ch, cf, out, B, L
+        self._desc = np.zeros((len(chunks), 6), dtype=np.int64)
+        self._desc[:, 0] = [c.data_ptr() for c in chunks]
+        self.codes0 = int(self._desc[:, 0].min())   # lowest codes address
+        self._desc[:, 4] = B
+        self._desc[:, 5] = L
+
+    def matches(self, chunks) -> bool:
+        """True if this table was built for exactly these tensors."""
+        return (len(chunks) == len(self.chunks) and all(
+            a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            for a, b in zip(chunks, self.chunks)))
+
+    def bind(self, hcars, fcars, outs) -> torch.Tensor:
+        """The (n, 6) int64 descriptor table on the device for one call:
+        the cached rows with this call's carry and output addresses."""
+        desc = self._desc.copy()
+        for col, tensors in ((1, hcars), (2, fcars), (3, outs)):
+            desc[:, col] = [t.data_ptr() for t in tensors]
+        return torch.from_numpy(desc).to(self.device)
+
+    def out_views(self, out: torch.Tensor) -> list:
+        """Per-chunk (B, V) views of a flat (n_blocks, V) output."""
+        fb = self.first_block
+        return [out[a:b] for a, b in zip(fb[:-1], fb[1:])]
+
+    def carry_views(self, flat: torch.Tensor) -> list:
+        """Per-chunk (B, L, V) views of a flat (numel,) carry buffer."""
+        fp = self.first_pos
+        return [flat[a:b].view(c.shape)
+                for a, b, c in zip(fp[:-1], fp[1:], self.chunks)]
 
 
 def chunk_as_stream(codes):

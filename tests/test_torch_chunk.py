@@ -152,3 +152,138 @@ def test_chunk_qtile_carries_chain_like_one_tile_and_like_the_stream():
     assert torch.equal(f_t.reshape(c.shape), f_b)
     with pytest.raises(ValueError, match="carries"):
         tlong.score_chunk_qtile(c, qpt, 10, 2, h0[:2].contiguous(), f0)
+
+
+def chunk_list(seed, qlen, shapes, V=8):
+    """Separately allocated chunks of different B and L, a homolog of the
+    query planted in each, a PAD run at a lane's end."""
+    rng = np.random.default_rng(seed)
+    q = random_codes(rng, qlen)
+    qp = build_query_profile(q, "BLOSUM62", m_multiple=8)
+    chunks = []
+    for B, L in shapes:
+        codes = rng.integers(0, 20, size=(B, L, V), dtype=np.int8)
+        hom = mutate(rng, q, sub_rate=0.05, indel_rate=0.01)[:L]
+        codes[B - 1, :len(hom), 2] = hom
+        codes[:, L - 9:, 5] = 24
+        chunks.append(codes)
+    return q, qp, chunks
+
+
+@pytest.mark.parametrize("seed,qlen,gaps", [(61, 90, (10, 2)),
+                                            (62, 95, (10, 2)),
+                                            (63, 70, (5, 0))])
+def test_score_chunks_long_list_vs_one_chunk_pallas_and_one_pass(seed, qlen,
+                                                                 gaps):
+    # B = 1 in a chunk of one 32-position tile, the longest chunk first:
+    # the list form gives, chunk for chunk, the one-chunk form's scores,
+    # the JAX package's and the one-pass plain scorer's
+    q, qp, chunks = chunk_list(seed, qlen, [(2, 96), (1, 32), (3, 64)])
+    tc = [torch.from_numpy(c) for c in chunks]
+    tqp = torch.from_numpy(qp)
+    got = tlong.score_chunks_long(tc, tqp, *gaps, tile_m=32)
+    assert len(got) == len(chunks)
+    for codes, c, g in zip(chunks, tc, got):
+        assert g.dtype == torch.int32 and g.shape == codes.shape[::2]
+        assert torch.equal(g, tlong.score_chunk_long(c, tqp, *gaps,
+                                                     tile_m=32))
+        assert np.array_equal(g.numpy(), port_chunk(codes, qp, *gaps))
+        assert np.array_equal(g.numpy(), oracle(q, codes, *gaps))
+        if gaps == (10, 2):
+            assert np.array_equal(g.numpy(), np.asarray(
+                longquery.score_chunk_long(jnp.asarray(codes),
+                                           jnp.asarray(qp), *gaps,
+                                           tile_m=32)))
+
+
+def test_chunk_table_maps_blocks_longest_first():
+    _, qp, chunks = chunk_list(64, 20, [(2, 64), (1, 32), (3, 96), (1, 64)])
+    tc = [torch.from_numpy(c) for c in chunks]
+    table = scorer.ChunkTable(tc)
+    assert (table.n_blocks, table.V) == (7, 8)
+    assert table.numel == sum(c.size for c in chunks)
+    # (chunk, block within it), longest L first, list order among equals
+    assert table.block_map.tolist() == [[2, 0], [2, 1], [2, 2], [0, 0],
+                                        [0, 1], [3, 0], [1, 0]]
+    flat = torch.arange(table.numel, dtype=torch.int32)
+    views = table.carry_views(flat)
+    assert [v.shape for v in views] == [c.shape for c in tc]
+    assert views[2].data_ptr() == flat[(2 * 64 + 32) * 8:].data_ptr()
+    outs = table.out_views(torch.zeros((7, 8), dtype=torch.int32))
+    assert [o.shape[0] for o in outs] == [2, 1, 3, 1]
+    desc = table.bind(views, views, outs)
+    assert desc.shape == (4, 6) and desc.dtype == torch.int64
+    assert desc[:, 0].tolist() == [c.data_ptr() for c in tc]
+    assert desc[:, 3].tolist() == [o.data_ptr() for o in outs]
+    assert desc[:, 4:].tolist() == [[2, 64], [1, 32], [3, 96], [1, 64]]
+    assert table.matches(tc) and not table.matches(tc[:3])
+    with pytest.raises(ValueError, match="other chunks"):
+        tlong.score_chunks_qtile(tc[:3], torch.from_numpy(qp), 10, 2,
+                                 views[:3], views[:3], table)
+    with pytest.raises(ValueError, match="share V"):
+        scorer.ChunkTable([tc[0], tc[1][:, :, :4].contiguous()])
+    with pytest.raises(ValueError, match="one length"):
+        tlong.score_chunks_qtile(tc, torch.from_numpy(qp), 10, 2, views,
+                                 views[:3])
+
+
+def small_db(tmp_path, recs, V=8):
+    from swimm_tpu.db import build_db as j_build_db
+    from swimm_tpu_torch.db import build_db
+    return (build_db(recs, tmp_path / "t", V=V),
+            j_build_db(recs, tmp_path / "j", V=V, use_native=False))
+
+
+def test_chunk_table_is_built_once_per_db_and_device(tmp_path, monkeypatch):
+    from swimm_tpu_torch.fasta import FastaRecord
+    from swimm_tpu_torch.models import engine
+    from swimm_tpu_torch.utils.synth import synth_db
+    built = []
+    init = scorer.ChunkTable.__init__
+    monkeypatch.setattr(scorer.ChunkTable, "__init__",
+                        lambda self, chunks: (built.append(len(chunks)),
+                                              init(self, chunks))[1])
+    monkeypatch.setattr(scorer, "max_query_pad", lambda: 32)
+    monkeypatch.setattr(tlong, "LONG_TILE_M", 32)
+    pt, _ = small_db(tmp_path, synth_db(40, seed=7, median_len=40,
+                                        max_len=100))
+    rng = np.random.default_rng(65)
+    for n in (70, 100, 20):          # two long queries (3 and 4 tiles), one
+        engine.score_db(pt, FastaRecord("q", random_codes(rng, n)),   # short
+                        engine.SearchConfig(), device="cpu")
+    assert built == [len(pt.chunks)]
+    chunks, table = engine.device_chunk_table(pt, "cpu")
+    assert engine.device_chunk_table(pt, "cpu")[1] is table
+    assert table.matches(engine.device_chunks(pt, "cpu"))
+    assert table.n_blocks == sum(ch.n_blocks for ch in pt.chunks)
+
+
+def test_score_db_long_query_through_the_list_form_matches_jax(tmp_path,
+                                                               monkeypatch):
+    # with the one-pass limit lowered to 32 rows a 100-aa query takes the
+    # port's query-tiled path (4 tiles of 32 rows over all chunks at once)
+    from swimm_tpu.fasta import FastaRecord as JRecord
+    from swimm_tpu.models import engine as jengine
+    from swimm_tpu_torch.fasta import FastaRecord
+    from swimm_tpu_torch.models import engine
+    from swimm_tpu_torch.utils.synth import synth_db
+    monkeypatch.setattr(scorer, "max_query_pad", lambda: 32)
+    monkeypatch.setattr(tlong, "LONG_TILE_M", 32)
+    rng = np.random.default_rng(66)
+    q = FastaRecord("q", random_codes(rng, 100))
+    recs = synth_db(60, seed=11, median_len=50, max_len=150)
+    recs[17] = FastaRecord("hom planted_homolog",
+                           mutate(rng, q.codes[:80], 0.1, 0.0))
+    pt, pj = small_db(tmp_path, recs)
+    assert len(pt.chunks) > 2
+    calls = []
+    inner = tlong.score_chunks_qtile
+    monkeypatch.setattr(tlong, "score_chunks_qtile",
+                        lambda *a, **k: (calls.append(len(a[0])),
+                                         inner(*a, **k))[1])
+    got = engine.score_db(pt, q, engine.SearchConfig(), device="cpu")
+    assert calls == [len(pt.chunks)] * 4   # one call per query tile
+    ref = jengine.score_db(pj, JRecord(q.title, q.codes),
+                           jengine.SearchConfig(backend="xla"))
+    assert got.dtype == np.int32 and np.array_equal(got, ref)
+    assert engine.top_k_hits(pt, got, 1)[0].title == "hom planted_homolog"

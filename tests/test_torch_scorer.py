@@ -85,6 +85,47 @@ def test_score_tiles_flat_gap_extend_and_multi_strip():
     assert np.array_equal(got.reshape(-1), exp)
 
 
+# the shapes that strain the CUDA kernel's cooperating workers (the card
+# check holds the kernel against the plain version on the same list): blocks
+# of one 32-position tile, fewer strips than workers (m = 8, 32, 40), strip
+# counts no worker count divides and 8-row tail strips (m = 72, 120, 136),
+# 14 strips, the longest profile, 64 lanes, a ceiling, flat and free gaps
+@pytest.mark.parametrize("lengths,V,m,go,ge,ceiling", [
+    ([32, 32, 32], 8, 8, 10, 2, None),
+    ([32, 64], 8, 32, 10, 2, None),
+    ([32, 96, 32], 8, 40, 10, 2, 12),
+    ([32, 128, 64], 8, 72, 10, 2, None),
+    ([64, 32, 96], 8, 120, 10, 2, 24),
+    ([32, 96], 8, 136, 10, 2, None),
+    ([32, 224, 64], 8, 448, 10, 2, None),
+    ([32, 64], 64, 448, 10, 2, 20),
+    ([32, 64], 8, 2048, 10, 2, None),
+    ([64, 96], 8, 72, 5, 0, None),
+    ([64, 96], 8, 72, 0, 3, 14),
+    ([64, 96], 8, 72, 0, 0, None),
+])
+def test_score_tiles_worker_edge_shapes_vs_xla_and_oracle(lengths, V, m, go,
+                                                          ge, ceiling):
+    rng = np.random.default_rng(100 + m + V + go)
+    q = random_codes(rng, m - int(rng.integers(0, 8)))
+    qp = build_query_profile(q, "BLOSUM62", m_multiple=8)
+    assert qp.shape == (32, m)
+    blocks, tiles, outrow = ragged_case(rng, lengths, V=V)
+    got = port_scores(tiles, outrow, len(blocks), qp, go, ge,
+                      ceiling=ceiling)
+    assert np.array_equal(got, np.asarray(xla_scorer.score_tiles(
+        jnp.asarray(tiles), jnp.asarray(outrow), len(blocks),
+        jnp.asarray(qp), go, ge, ceiling=ceiling)))
+    if m <= 136:
+        db_seqs = [b[:, v] for b in blocks for v in range(V)]
+        exp = reference.sw_score_many(q, db_seqs, get_matrix("BLOSUM62"),
+                                      go, ge)
+        if ceiling is not None:
+            assert (exp >= ceiling).any()
+            exp = np.minimum(exp, ceiling)
+        assert np.array_equal(got.reshape(-1), exp)
+
+
 @pytest.mark.parametrize("go,ge", [(-1, 2), (10, -1)])
 def test_score_tiles_rejects_negative_gaps(go, ge):
     rng = np.random.default_rng(14)
