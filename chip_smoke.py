@@ -11,15 +11,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      16, 24, 40, 2048, 2064, a multi-tile long query with a small tile_m,
      and the DB's longest block, and for sw_ragged_kernel the shapes that
      strain its cooperating workers, each with and without a ceiling:
-     one-tile blocks, m = 8, 32, 40, 72, 120, 136, 448, 2048, 64 lanes,
-     flat and free gaps); the packed kernel on packs with a planted
-     homolog in the query just above another, a one-group query, a pack
-     filled to its bucket, a pack with a large unused tail, gap_extend=0
-     and gap_open=0; the chunk kernels at V = 128 and 64, m = 8, 40, 2048,
-     a ceiling, m = 2064 in 1024-row tiles, a small tile_m, one query-tile
-     launch with random carries, and the list form of the query-tile kernel
-     on separately allocated chunks of different B and L in one launch
-     (--kernels-only stops here);
+     one-tile blocks, m = 8, 32, 40, 72, 120, 136, 448, 2048, 64, 256 and
+     512 lanes, flat and free gaps; more than 512 lanes are refused before
+     any launch); the packed kernel on packs with a planted homolog in the
+     query just above another, a one-group query, a pack filled to its
+     bucket, a pack with a large unused tail, gap_extend=0 and gap_open=0,
+     and on packs cut to M = 8, 40, 72 and 160 rows (one strip, an 8-row
+     tail strip, odd strip counts) with a query that straddles a strip
+     boundary and a homolog planted in its rows just above the boundary;
+     the chunk kernels at V = 128, 64 and 512, m = 8, 40, 2048, a ceiling,
+     m = 2064 in 1024-row tiles, a small tile_m, one query-tile launch with
+     random carries, and the list forms of both chunk kernels on separately
+     allocated chunks of different B and L in one launch (--kernels-only
+     stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -28,18 +32,20 @@ Phases (any failure raises and exits nonzero; nothing is caught):
   4. one 5,000-aa query (a query-0 segment inside random sequence) through
      the query-tiled path (5 tiles of 1024 rows), counted the same way;
   5. the packed path: the same 20 queries with query_pack=True (one launch
-     per pack), hit lists equal to the per-query search's hit for hit;
+     per pack), hit lists equal to the per-query search's hit for hit; then
+     100 short queries (30-120 aa), per query against packed, equal hits;
   6. the chunk path: score_db for query 0 and for the 5,000-aa query, every
      lane's score equal to the stream kernels' over the resident stream,
-     their top 16 equal to the search's hits, one launch per chunk (for
-     the long query: one per query tile over all chunks);
+     their top 16 equal to the search's hits, one launch over all chunks
+     (for the long query: one per query tile);
   7. exactness at scale: every reported hit rescored (numpy Gotoh oracle
      for three queries, the plain scorer on the gathered lanes for all),
      each query's top hit a planted homolog;
   8. all five kernels against their plain versions at the main path's full
      size, bit-exact (the whole tile stream at query 0's m; the first two
      1024-row tiles of the long query, scores and both outgoing carries;
-     the widest pack over the whole stream; every chunk at query 0's m;
+     the widest pack over the whole stream; every chunk at query 0's m in
+     one launch, also equal to kernel 1's lanes;
      the long query's third tile over every chunk with the second tile's
      carries in), their times beside their bounds (instruction rate
      peak from the card's SM count and max clock), kernel 1's time without
@@ -85,6 +91,7 @@ OPS_PER_CELL = 6.5          # instructions per DP cell, counted from the
 N_SEQS = 570_000
 N_QUERIES = 20
 LONG_LEN = 5000
+N_SHORT = 100               # short queries, per query against packed
 
 
 def note(msg: str) -> None:
@@ -159,6 +166,7 @@ def compare_kernels(errs: dict) -> None:
             ([1, 3, 1], 128, 40, 10, 2, 25), ([1, 4, 2], 128, 72, 10, 2, 30),
             ([2, 1, 3], 128, 120, 10, 2, 30), ([1, 3], 128, 136, 10, 2, 25),
             ([1, 7, 2], 128, 448, 10, 2, 50), ([1, 7, 2], 64, 448, 10, 2, 50),
+            ([1, 3], 256, 136, 10, 2, 25), ([2, 1], 512, 72, 10, 2, 30),
             ([1, 2], 64, 2048, 10, 2, 60), ([2, 3], 128, 72, 5, 0, 20),
             ([2, 3], 128, 72, 0, 3, 20), ([2, 3], 128, 72, 0, 0, 20)):
         cases += [(counts, V, m, go, ge, None), (counts, V, m, go, ge, ceil)]
@@ -173,17 +181,28 @@ def compare_kernels(errs: dict) -> None:
         errs[k1] = max(errs[k1], max_err(got, ref))
         note(f"{k1} V={V} m={m} gaps={go}/{ge} ceiling={ceil}: "
              f"max_abs_err={max_err(got, ref)}")
-    # long queries: m=2064 in 1024-row tiles (3 launches), and m=200 in
-    # 64-row tiles (4 launches), against the one-pass plain scorer
-    for counts, m, tile_m in (([2, 1, 3], 2064, None), ([3, 2], 200, 64)):
-        tiles, outrow, n_rows = ragged_case(rng, counts)
+    # the lane limit is checked before any launch: every kernel is built
+    # for at most 512 threads a block
+    tiles, outrow, n_rows = ragged_case(rng, [1], 1024)
+    try:
+        scorer.score_tiles(tiles, outrow, n_rows, profile(rng, 8), 10, 2)
+    except ValueError as exc:
+        note(f"{k1} V=1024 refused: {exc}")
+    else:
+        raise AssertionError("V=1024 must be refused")
+    # long queries: m=2064 in 1024-row tiles (3 launches), m=200 in 64-row
+    # tiles (4 launches) and 512 lanes, against the one-pass plain scorer
+    for counts, V, m, tile_m in (([2, 1, 3], 128, 2064, None),
+                                 ([3, 2], 128, 200, 64),
+                                 ([2, 1], 512, 72, 32)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
         qp = profile(rng, m)
         got = longquery.score_tiles_long(tiles, outrow, n_rows, qp, 10, 2,
                                          tile_m=tile_m)
         ref = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, 10, 2)
         torch.cuda.synchronize()
         errs[k2] = max(errs[k2], max_err(got, ref))
-        note(f"{k2} score_tiles_long m={m} tile_m={tile_m}: "
+        note(f"{k2} score_tiles_long V={V} m={m} tile_m={tile_m}: "
              f"max_abs_err={max_err(got, ref)}")
     # one launch with carries in and out vs the plain one-tile step
     tiles, outrow, n_rows = ragged_case(rng, [2, 4, 1])
@@ -226,24 +245,48 @@ def compare_new_kernels(errs: dict) -> None:
     rng = np.random.default_rng(6)
     k3, k4, k5 = ("sw_ragged_packed_kernel", "sw_chunk_kernel",
                   "sw_chunk_qtile_kernel")
-    packs = [  # (what, query lengths, bucket, gap_open, gap_extend)
-        ("homolog above the next query", (40, 16, 61, 24), 256, 10, 2),
-        ("one-group query", (8,), 64, 10, 2),
-        ("filled to its bucket", (3, 8, 1, 5), 64, 10, 2),
-        ("large unused tail", (100, 7), 1024, 10, 2),
-        ("gap_extend=0", (33, 50), 128, 5, 0),
-        ("gap_open=0", (33, 50), 128, 0, 4),
-        ("24 queries, 6 strips", (1,) * 24, 384, 10, 2),
+    packs = [  # (what, query lengths, bucket, rows kept, gap_open,
+        #         gap_extend, V, query a homolog is planted of, its rows)
+        ("homolog above the next query", (40, 16, 61, 24), 256, 256, 10, 2,
+         128, 0, (0, 32)),
+        ("one-group query", (8,), 64, 64, 10, 2, 128, 0, (0, 8)),
+        ("filled to its bucket", (3, 8, 1, 5), 64, 64, 10, 2, 128, 0, (0, 3)),
+        ("large unused tail", (100, 7), 1024, 1024, 10, 2, 128, 0, (0, 32)),
+        ("gap_extend=0", (33, 50), 128, 128, 5, 0, 128, 0, (0, 32)),
+        ("gap_open=0", (33, 50), 128, 128, 0, 4, 128, 0, (0, 32)),
+        ("gap_open=0, gap_extend=0", (33, 50), 128, 128, 0, 0, 128, 0,
+         (0, 32)),
+        ("24 queries, 6 strips", (1,) * 24, 384, 384, 10, 2, 128, 0, (0, 1)),
+        # packs cut to M rows (any M % 8 == 0 is legal; a pack lays its
+        # queries out longest first): one 8-row strip and no separator; 32
+        # + 8 rows, the second query in rows 24-39; 32 + 32 + 8 rows, the
+        # second query in rows 56-71; five strips (the carry stream in
+        # use) under one query. Each has a query that straddles a strip
+        # boundary, and a homolog of its rows just above the boundary is
+        # planted: the rows whose maxima two workers fold into one plane
+        ("one strip of 8 rows", (8,), 64, 8, 10, 2, 128, 0, (0, 8)),
+        ("1 + tail strip, straddling row 32", (12, 12), 64, 40, 10, 2, 128,
+         1, (0, 8)),
+        ("3 strips, straddling rows 32 and 64", (45, 12), 128, 72, 10, 2,
+         128, 1, (0, 8)),
+        ("5 strips, straddling rows 32-128", (130, 12), 192, 160, 10, 2, 128,
+         0, (24, 64)),
+        ("64 lanes", (40, 16, 61, 24), 256, 256, 10, 2, 64, 0, (0, 32)),
+        ("256 lanes, 5 + tail strips", (130, 12), 192, 168, 10, 2, 256, 0,
+         (24, 64)),
+        ("512 lanes, one worker", (45, 12), 128, 72, 10, 2, 512, 1, (0, 8)),
     ]
-    for what, lens, bucket, go, ge in packs:
+    for what, lens, bucket, keep, go, ge, V, who, (h0, h1) in packs:
         queries = [random_codes(rng, n) for n in lens]
-        tiles, outrow, n_rows = ragged_case(rng, [2, 1, 3])
-        # strong homologs of the first query: big H and F in the rows
-        # right above the next query's, the case a leak would show in
-        hom = mutate(rng, queries[0], 0.02, 0.0)[:32].astype(np.int8)
-        tiles[0, :len(hom), 7] = torch.from_numpy(hom).cuda()
+        tiles, outrow, n_rows = ragged_case(rng, [2, 1, 3], V)
+        # strong homologs: big H and F in the rows right above the next
+        # query's (or the next strip's), the case a leak would show in
+        hom = mutate(rng, queries[who][h0:h1], 0.02, 0.0).astype(np.int8)
+        tiles[0, :, 7] = torch.from_numpy(
+            np.resize(hom, tiles.shape[1])).cuda()
         pack, = qpack.build_query_packs(queries, buckets=(bucket,))
         qp, seg = pack_on_card(pack)
+        qp, seg = qp[:, :keep].contiguous(), seg[:keep // 8].contiguous()
         got = scorer.score_tiles_packed(tiles, outrow, n_rows, qp, seg, go,
                                         ge)
         ref = scorer.score_tiles_packed_ref(tiles, outrow, n_rows, qp, seg,
@@ -254,7 +297,11 @@ def compare_new_kernels(errs: dict) -> None:
         unused = [p for p in range(got.shape[1]) if p not in used]
         if unused and int(got[:, unused].abs().max().item()) != 0:
             raise AssertionError(f"{k3} {what}: an unused plane is not zero")
-        note(f"{k3} {what} lens={lens} M={pack.M} gaps={go}/{ge}: "
+        plane = next(e.seg // 2 for e in pack.entries if e.query_pos == who)
+        if h1 - h0 >= 8 and int(got[0, plane, 7].item()) < 2 * (h1 - h0):
+            raise AssertionError(f"{k3} {what}: the planted homolog does "
+                                 "not show in its query's plane")
+        note(f"{k3} {what} lens={lens} M={keep} V={V} gaps={go}/{ge}: "
              f"max_abs_err={max_err(got, ref)}")
     chunks = [  # (B, L, V, m, gap_open, gap_extend, ceiling)
         (3, 96, 128, 8, 10, 2, None),
@@ -262,6 +309,7 @@ def compare_new_kernels(errs: dict) -> None:
         (5, 32, 64, 72, 5, 0, None),
         (4, 160, 128, 64, 10, 2, 40),
         (2, 64, 64, 2048, 10, 2, None),
+        (2, 96, 512, 72, 10, 2, 30),
     ]
     for B, L, V, m, go, ge, ceil in chunks:
         codes = chunk_case(rng, B, L, V)
@@ -274,7 +322,8 @@ def compare_new_kernels(errs: dict) -> None:
              f"max_abs_err={max_err(got, ref)}")
     # long queries over a chunk: m=2064 in 1024-row tiles (3 launches) and
     # m=200 in 64-row tiles (4 launches), against the one-pass plain scorer
-    for B, L, V, m, tile_m in ((2, 64, 128, 2064, None), (3, 96, 64, 200, 64)):
+    for B, L, V, m, tile_m in ((2, 64, 128, 2064, None), (3, 96, 64, 200, 64),
+                               (2, 64, 512, 72, 32)):
         codes = chunk_case(rng, B, L, V)
         qp = profile(rng, m)
         got = longquery.score_chunk_long(codes, qp, 10, 2, tile_m=tile_m)
@@ -283,13 +332,29 @@ def compare_new_kernels(errs: dict) -> None:
         errs[k5] = max(errs[k5], max_err(got, ref))
         note(f"{k5} score_chunk_long V={V} m={m} tile_m={tile_m}: "
              f"max_abs_err={max_err(got, ref)}")
-    # the list form on separately allocated chunks of different B and L
-    # (B = 1, one 32-position tile, the longest neither first nor last):
-    # one launch per query tile, scores and both outgoing carries of every
-    # chunk against the plain one-tile step chunk by chunk
+    # the list forms on separately allocated chunks of different B and L
+    # (B = 1, one 32-position tile, the longest neither first nor last).
+    # Kernel 4: one launch, with and without a ceiling, one strip (no
+    # carry), strips for both workers, and more strips than workers
+    shapes = ((2, 64), (1, 32), (3, 160), (1, 4480), (4, 96))
+    for V, m, ceil in ((128, 8, None), (128, 40, None), (128, 72, 30),
+                       (64, 448, None), (64, 448, 60), (256, 136, None)):
+        clist = [chunk_case(rng, B, L, V) for B, L in shapes]
+        qp = profile(rng, m)
+        before = scorer.score_chunks.launches
+        got = scorer.score_chunks(clist, qp, 10, 2, ceiling=ceil)
+        if scorer.score_chunks.launches != before + 1:
+            raise AssertionError(f"{k4}: the list form must be one launch")
+        e = max(max_err(g, scorer.score_chunk_ref(c, qp, 10, 2, ceiling=ceil))
+                for g, c in zip(got, clist))
+        torch.cuda.synchronize()
+        errs[k4] = max(errs[k4], e)
+        note(f"{k4} list of {len(clist)} separate chunks V={V} m={m} "
+             f"ceiling={ceil}, one launch: max_abs_err={e}")
+    # Kernel 5: one launch per query tile, scores and both outgoing carries
+    # of every chunk against the plain one-tile step chunk by chunk
     for V, m in ((128, 72), (64, 1024)):
-        clist = [chunk_case(rng, B, L, V)
-                 for B, L in ((2, 64), (1, 32), (3, 160), (1, 4480), (4, 96))]
+        clist = [chunk_case(rng, B, L, V) for B, L in shapes]
         hcs = [torch.randint(0, 60, c.shape, dtype=torch.int32,
                              device="cuda") for c in clist]
         fcs = [torch.randint(-80, 40, c.shape, dtype=torch.int32,
@@ -505,7 +570,7 @@ def main(argv=None) -> int:
     counters = {"sw_ragged_kernel": scorer.score_tiles,
                 "sw_ragged_qtile_kernel": longquery.score_qtile,
                 "sw_ragged_packed_kernel": scorer.score_tiles_packed,
-                "sw_chunk_kernel": scorer.score_chunk,
+                "sw_chunk_kernel": scorer.score_chunks,
                 "sw_chunk_qtile_kernel": longquery.score_chunks_qtile}
     launches = dict.fromkeys(counters, 0)
 
@@ -624,6 +689,23 @@ def main(argv=None) -> int:
                              "per-query search's")
     p_breakdown = device_breakdown(lambda: search(packed, queries, pconfig))
     note(f"20-query packed search under torch.profiler: {p_breakdown}")
+    # many short queries, where a launch per query has few rows to work on:
+    # per query against packed, each after one warm-up run
+    srng = np.random.default_rng(4)
+    shorts = synth_queries(N_SHORT, list(srng.integers(30, 121, N_SHORT)),
+                           seed=5)
+    short = {}
+    for name, cfg in (("per_query", config), ("packed", pconfig)):
+        search(packed, shorts, cfg)
+        res, m = search(packed, shorts, cfg)
+        short[name] = {"seconds": m.seconds, "gcups": m.gcups,
+                       "padded_gcups": m.padded_gcups, "results": res}
+    if not same_hits(short["packed"].pop("results"),
+                     short["per_query"].pop("results")):
+        raise AssertionError("short queries: packed hits differ from the "
+                             "per-query hits")
+    short["packs"] = len(qpack.build_query_packs(shorts, pconfig.matrix))
+    note(f"{N_SHORT} queries of 30-120 aa: {short}")
 
     # ---- phase 6: the chunk path (score_db) ----
     tiles, outrow, n_rows, row_start = dev_db[:4]
@@ -639,9 +721,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     vec, seen = counted(lambda: score_db(packed, queries[0], config))
     db_short_s = time.perf_counter() - t
-    if seen["sw_chunk_kernel"] != n_chunks:
-        raise AssertionError(f"expected {n_chunks} chunk launches, got "
-                             f"{seen}")
+    if seen["sw_chunk_kernel"] != 1 or sum(seen.values()) != 1:
+        raise AssertionError(f"expected one launch over all {n_chunks} "
+                             f"chunks, got {seen}")
     check_score_vector(packed, "query 0", vec, scorer.score_tiles(
         tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start).reshape(-1),
         results[0], config.top_k)
@@ -692,7 +774,7 @@ def main(argv=None) -> int:
     errs["sw_ragged_kernel"] = max(errs["sw_ragged_kernel"], e1)
     note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: "
          f"max_abs_err={e1}")
-    del got1, ref1
+    del ref1
     b1, b1_by = walk_bound(m1, 4 * n_rows * V)
     # how much of kernel 1's time is the tail of long blocks: the stream
     # without its 100 longest blocks (the last rows), and those alone
@@ -761,18 +843,26 @@ def main(argv=None) -> int:
     b3, b3_by = walk_bound(wide.M, 4 * (wide.M // 8) + planes_bytes)
     phases["full_size_k3_s"] = time.perf_counter() - t
 
-    # kernel 4 over every chunk at query 0's m
+    # kernel 4 over every chunk at query 0's m, in one launch; the chunks
+    # are views of the stream, so its scores are also kernel 1's lanes
     t = time.perf_counter()
-    chunks = engine.device_chunks(packed)
-    k4 = lambda: [scorer.score_chunk(c, qp1, 10, 2) for c in chunks]
+    chunks, table = engine.device_chunk_table(packed)
+    k4 = lambda: scorer.score_chunks(chunks, qp1, 10, 2, table=table)
+    before = scorer.score_chunks.launches
     k4_ms, got4 = timed(k4, reps=3)
+    if scorer.score_chunks.launches != before + 3:
+        raise AssertionError(f"expected one launch per call over all "
+                             f"{n_chunks} chunks")
     p4_ms, ref4 = timed(
         lambda: [scorer.score_chunk_ref(c, qp1, 10, 2) for c in chunks])
     e4 = max(max_err(g, r) for g, r in zip(got4, ref4))
     errs["sw_chunk_kernel"] = max(errs["sw_chunk_kernel"], e4)
-    note(f"sw_chunk_kernel vs plain, all {n_chunks} chunks at m={m1}: "
-         f"max_abs_err={e4}")
-    del got4, ref4
+    if not torch.equal(torch.cat(got4), got1):
+        raise AssertionError("sw_chunk_kernel over all chunks differs from "
+                             "sw_ragged_kernel's lanes")
+    note(f"sw_chunk_kernel vs plain, all {n_chunks} chunks at m={m1} in one "
+         f"launch: max_abs_err={e4}; equal to sw_ragged_kernel's lanes")
+    del got1, got4, ref4
     b4, b4_by = bound(tiles.numel() + n_chunks * 4 * 32 * m1
                       + 4 * n_rows * V, OPS_PER_CELL * lanes_pos * m1,
                       int_rate)
@@ -786,7 +876,6 @@ def main(argv=None) -> int:
     spans = np.cumsum([0] + [c.shape[0] * c.shape[1] // jt for c in chunks])
     car = [(hc[a:b].view(c.shape), fc[a:b].view(c.shape))
            for c, a, b in zip(chunks, spans[:-1], spans[1:])]
-    table = engine.device_chunk_table(packed)[1]
     got5 = longquery.score_chunks_qtile(
         chunks, qp5, 10, 2, [h.clone() for h, _ in car],
         [f.clone() for _, f in car], table)
@@ -824,8 +913,8 @@ def main(argv=None) -> int:
          f"T={T} V={V} M={wide.M} queries={len(wide.entries)}"),
         ("sw_chunk_kernel", "sw_chunk.cu",
          "swimm_tpu/ops/pallas_scorer.py:245", k4_ms, p4_ms, b4, b4_by,
-         f"{n_chunks} chunks, {n_rows} blocks, V={V} m={m1}; ms over all "
-         "chunks"),
+         f"{n_chunks} chunks, {n_rows} blocks, V={V} m={m1}; one launch "
+         "over all chunks"),
         ("sw_chunk_qtile_kernel", "sw_chunk.cu",
          "swimm_tpu/ops/longquery.py:126", k5_ms, p5_ms, b5, b5_by,
          f"{n_chunks} chunks, {n_rows} blocks, V={V} tile_m={tm}; one "
@@ -858,6 +947,7 @@ def main(argv=None) -> int:
         "single_query": {"seconds": one_met.seconds, "gcups": one_met.gcups},
         "batch20_profiled": breakdown,
         "batch20_packed_profiled": p_breakdown,
+        "short100": short,
         "long5000": {"seconds": long_met.seconds, "gcups": long_met.gcups,
                      "padded_gcups": long_met.padded_gcups},
         "score_db": {"query0_s": db_short_s, "long5000_s": db_long_s,

@@ -6,16 +6,19 @@ module: the packed-DB format, the whole-DB resident search path (one launch
 per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
 the per-chunk scoring API ``score_db`` and their five hand-written kernels
 (csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
-csrc/sw_walk.cuh and csrc/sw_walk_hg.cuh), bit-exact with ``swimm_tpu``. Imports torch and numpy
-only. Entry points run on 'cuda' unless given device='cpu'.
+csrc/sw_walk_hg.cuh and, for the query-tile kernels, csrc/sw_walk.cuh),
+bit-exact with ``swimm_tpu``. Imports torch and numpy only. Entry points run
+on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
   models.engine      SearchConfig, search (resident DB, device top-k),
-                     score_db (every lane's score, chunk by chunk)
+                     score_db (every lane's score, all chunks per launch)
   models.qpack       build_query_packs (many queries in one profile)
   ops.scorer         score_tiles        -> sw_ragged_kernel
                      score_tiles_packed -> sw_ragged_packed_kernel
-                     score_chunk        -> sw_chunk_kernel
+                     score_chunks       -> sw_chunk_kernel (a list of chunks
+                                           per launch; score_chunk is its
+                                           one-chunk case)
   ops.longquery      score_tiles_long   -> sw_ragged_qtile_kernel
                      score_chunks_long  -> sw_chunk_qtile_kernel (a list of
                                            chunks per launch; score_chunk_long

@@ -1,24 +1,25 @@
 // Exact Smith-Waterman / Gotoh scores over the whole-DB ragged tile stream.
 //
 // Layout, recurrence, strip-mining and the bound on the card are described
-// in sw_walk.cuh, whose strip walk the last two of these three kernels
-// share:
+// in sw_walk.cuh; what bounded the first design on the card, and the walk
+// with cooperating workers that answers it, in sw_walk_hg.cuh. Three
+// kernels:
 //
 //   sw_ragged_kernel        replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_ragged_kernel (via score_tiles): a query of
 //                           at most 2048 padded rows against every block,
 //                           two workers to a block on the walk of
-//                           sw_walk_hg.cuh (what bounded it on the card and
-//                           what that design does about it are told there).
+//                           sw_walk_hg.cuh.
 //   sw_ragged_qtile_kernel  replaces swimm_tpu/ops/longquery.py
 //                           _dp_ragged_tile_kernel (via _score_tiles_one_qtile):
 //                           one query tile of a long query, with the H/F
 //                           boundary rows carried in and out through device
-//                           memory.
+//                           memory, on the walk of sw_walk.cuh.
 //   sw_ragged_packed_kernel replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_packed_kernel (via score_tiles_packed): a
 //                           PACKED multi-query profile, one score plane per
-//                           query.
+//                           query, on the packed form of the walk of
+//                           sw_walk_hg.cuh.
 //
 // Layout. tiles is (T, jt, V) int8, block-major: the tiles of one block
 // (one output row) are consecutive, so a block's codes are one contiguous
@@ -26,12 +27,12 @@
 // range in row_start (n_rows + 1 entries, computed once per DB by the
 // wrapper) — the TPU kernel's scalar-prefetched outrow map is not needed.
 //
-// Long queries. sw_ragged_qtile_kernel is the same walk with the carries
-// read at the tile's first strip and written at its last. Unlike the TPU
-// kernel, which carries a global-ramp column cummax ("gcar"), this port
-// carries real bottom-row H and real F into the next row; the carries are
-// internal to score_tiles_long, whose contract is its output. At a block's
-// first db position the H boundary is 0 and E starts at NEG.
+// Long queries. sw_ragged_qtile_kernel reads the carries at the tile's
+// first strip and writes them at its last. Unlike the TPU kernel, which
+// carries a global-ramp column cummax ("gcar"), this port carries real
+// bottom-row H and real F into the next row; the carries are internal to
+// score_tiles_long, whose contract is its output. At a block's first db
+// position the H boundary is 0 and E starts at NEG.
 //
 // Packed profiles. The profile is several queries one under the other,
 // each 8-row aligned and followed by an 8-row separator group whose
@@ -46,13 +47,12 @@
 // separator starts and the tail start alike. Separator rows then hold
 // H = 0 (no diagonal, no F from above, E <= 0), so the next query's first
 // row sees the boundary of a query run alone, and the diagonal needs no
-// special case. A thread owns its (block, lane) through all strips, so it
-// folds each group's maximum into its query's plane with a plain
-// read-max-write; the wrapper zero-fills the planes. The packed kernel
-// does the same integer work per cell as sw_ragged_kernel (the cap is
-// one min per 8 rows) and is bound by instruction rate like it.
-
-#include <climits>
+// special case. The packed kernel does the same integer work per cell as
+// sw_ragged_kernel (the cap is one min per 8 rows, the maxima are kept per
+// group) on the same schedule of two workers per DB block. The strips of
+// one lane now belong to two threads a step apart, and one query's rows
+// may lie in both, so each strip's group maxima go to the query's plane by
+// an atomic maximum; the wrapper zero-fills the planes.
 
 #include "sw_walk.cuh"
 #include "sw_walk_hg.cuh"
@@ -69,14 +69,14 @@ __device__ __forceinline__ int block_row() {
   return gridDim.x - 1 - blockIdx.x;
 }
 
-// This thread's lane of block `row`: offset of its first position in the
-// (T, jt, V) stream, and the block's position count.
+// Block `row`: offset of its first position in the (T, jt, V) stream, and
+// its position count.
 __device__ __forceinline__ int64_t block_span(
     const int64_t* __restrict__ row_start, int row, int jt, int V,
-    int64_t* npos) {
+    int* npos) {
   const int64_t t0 = row_start[row];
-  *npos = (row_start[row + 1] - t0) * jt;
-  return t0 * jt * V + threadIdx.x;
+  *npos = static_cast<int>(row_start[row + 1] - t0) * jt;
+  return t0 * jt * V;
 }
 
 // Kernel 1: whole query, optional saturating ceiling (H clamped at
@@ -93,13 +93,12 @@ sw_ragged_kernel(const int8_t* __restrict__ tiles,
                  const int* __restrict__ qp, int m, int goe, int ge,
                  int ceiling, int2* carry, int* __restrict__ out) {
   extern __shared__ int smem[];
+  int npos;
   const int row = block_row();
-  const int64_t t0 = row_start[row];
-  const int npos = static_cast<int>(row_start[row + 1] - t0) * jt;
-  const int64_t base = t0 * jt * V;
-  const int smax = hg_walk_block<CEIL>(tiles + base, npos, V, qp, m, goe, ge,
-                                       ceiling, carry ? carry + base : nullptr,
-                                       smem);
+  const int64_t base = block_span(row_start, row, jt, V, &npos);
+  const int smax = hg_walk_block<CEIL, false>(
+      tiles + base, npos, V, qp, m, goe, ge, ceiling,
+      carry ? carry + base : nullptr, smem, PackedPlanes{});
   if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
 }
 
@@ -112,99 +111,45 @@ __global__ void sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
                                        const int* __restrict__ qp, int m,
                                        int goe, int ge, int* ch, int* cf,
                                        int* __restrict__ out) {
-  int64_t npos;
   const int row = block_row();
-  const int64_t base = block_span(row_start, row, jt, V, &npos);
-  const int smax = walk_block<false>(tiles + base, npos, V, qp, m, goe, ge,
-                                     0, ch + base, cf + base, true, true);
+  const int64_t t0 = row_start[row];
+  const int64_t npos = (row_start[row + 1] - t0) * jt;
+  const int64_t base = t0 * jt * V + threadIdx.x;
+  const int smax = walk_block(tiles + base, npos, V, qp, m, goe, ge,
+                              ch + base, cf + base);
   out[(int64_t)row * V + threadIdx.x] = smax;
-}
-
-// One strip of a packed profile: groups g0 .. g0 + R/8 - 1. planes points
-// at this thread's lane of the block's plane 0 (plane stride V).
-template <int R>
-__device__ __forceinline__ void packed_strip(
-    bool rd, bool wr, const int8_t* codes, int64_t npos, int V,
-    const int* prof, int goe, int ge, int* ch, int* cf,
-    const int* __restrict__ seg_of_group, int g0, int n_planes,
-    int* planes) {
-  constexpr int G = R / SEG_ROWS;
-  int seg[G], fcap[G], gmax[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    seg[g] = seg_of_group[g0 + g];
-    const bool starts = g0 + g == 0 || seg_of_group[g0 + g - 1] != seg[g];
-    fcap[g] = starts ? NEG : INT_MAX;
-  }
-  strip_dispatch<R, false, true>(rd, wr, codes, npos, V, prof, goe, ge, 0,
-                                 ch, cf, 0, fcap, gmax);
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    // even ids are queries (plane id / 2); odd ids (separators, tail) and
-    // ids past the planes are dropped
-    const int s = seg[g];
-    if (s >= 0 && !(s & 1) && s / 2 < n_planes) {
-      int* o = planes + (int64_t)(s / 2) * V;
-      *o = max(*o, gmax[g]);
-    }
-  }
 }
 
 // Kernel 3: packed multi-query profile of m rows (m % 8 == 0; packs are
 // multiples of 64), seg_of_group (m / 8,) int32 nondecreasing. out is
-// (n_rows, n_planes, V) int32, zero on entry. ch/cf are scratch (unused
-// when m fits one strip).
-__global__ void sw_ragged_packed_kernel(
-    const int8_t* __restrict__ tiles, const int64_t* __restrict__ row_start,
-    int V, int jt, const int* __restrict__ qp, int m,
-    const int* __restrict__ seg_of_group, int n_planes, int goe, int ge,
-    int* ch, int* cf, int* out) {
-  __shared__ int prof[STRIP * TABLE_CODES];
-  int64_t npos;
+// (n_rows, n_planes, V) int32, zero on entry. Workers, carry and the thread
+// limit as kernel 1.
+__global__ void __launch_bounds__(HG_MAX_THREADS, 1)
+sw_ragged_packed_kernel(const int8_t* __restrict__ tiles,
+                        const int64_t* __restrict__ row_start, int V, int jt,
+                        const int* __restrict__ qp, int m,
+                        const int* __restrict__ seg_of_group, int n_planes,
+                        int goe, int ge, int2* carry, int* out) {
+  extern __shared__ int smem[];
+  int npos;
   const int row = block_row();
   const int64_t base = block_span(row_start, row, jt, V, &npos);
-  const int8_t* codes = tiles + base;
-  int* chb = ch ? ch + base : nullptr;
-  int* cfb = cf ? cf + base : nullptr;
-  int* planes = out + (int64_t)row * n_planes * V + threadIdx.x;
-  const int n_full = m / STRIP;
-  const int n_strips = n_full + (m % STRIP) / STRIP_TAIL;
-  for (int s = 0; s < n_strips; ++s) {
-    const bool rd = s > 0;
-    const bool wr = s < n_strips - 1;
-    if (s < n_full) {
-      stage_profile<STRIP>(prof, qp, m, s * STRIP);
-      packed_strip<STRIP>(rd, wr, codes, npos, V, prof, goe, ge, chb, cfb,
-                          seg_of_group, s * (STRIP / SEG_ROWS), n_planes,
-                          planes);
-    } else {
-      const int r0 = n_full * STRIP + (s - n_full) * STRIP_TAIL;
-      stage_profile<STRIP_TAIL>(prof, qp, m, r0);
-      packed_strip<STRIP_TAIL>(rd, wr, codes, npos, V, prof, goe, ge, chb,
-                               cfb, seg_of_group, r0 / SEG_ROWS, n_planes,
-                               planes);
-    }
-  }
+  const PackedPlanes pk{seg_of_group, n_planes,
+                        out + (int64_t)row * n_planes * V + threadIdx.x % V};
+  hg_walk_block<false, true>(tiles + base, npos, V, qp, m, goe, ge, 0,
+                             carry ? carry + base : nullptr, smem, pk);
 }
 
 template <bool CEIL>
 int launch_ragged(const void* tiles, const void* row_start, int n_rows, int V,
                   int jt, const void* qp, int m, int goe, int ge, int ceiling,
                   void* carry, void* out, void* stream) {
-  // workers per DB block: as many as HG_MAX_WORKERS, the thread limit and
-  // the strip count allow; workers synchronise by warps, so lanes that do
-  // not fill whole warps get one
-  int workers = HG_MAX_THREADS / V < HG_MAX_WORKERS ? HG_MAX_THREADS / V
-                                                    : HG_MAX_WORKERS;
-  const int n_strips = m / STRIP + (m % STRIP) / STRIP_TAIL;
-  if (workers > n_strips) workers = n_strips;
-  if (workers < 1 || V % 32) workers = 1;
-  const size_t shared = hg_shared_ints(workers, V) * sizeof(int);
-  const cudaError_t err = cudaFuncSetAttribute(
-      sw_ragged_kernel<CEIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shared));
+  int threads;
+  size_t shared;
+  const cudaError_t err =
+      hg_launch_shape(sw_ragged_kernel<CEIL>, V, m, &threads, &shared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sw_ragged_kernel<CEIL><<<n_rows, workers * V, shared,
+  sw_ragged_kernel<CEIL><<<n_rows, threads, shared,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(tiles),
       static_cast<const int64_t*>(row_start), V, jt,
@@ -248,16 +193,19 @@ extern "C" int sw_ragged_packed_launch(const void* tiles,
                                        const void* row_start, int n_rows,
                                        int V, int jt, const void* qp, int m,
                                        const void* seg_of_group, int n_planes,
-                                       int goe, int ge, void* ch, void* cf,
+                                       int goe, int ge, void* carry,
                                        void* out, void* stream) {
-  if (n_rows > 0) {
-    sw_ragged_packed_kernel<<<n_rows, V, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(tiles),
-        static_cast<const int64_t*>(row_start), V, jt,
-        static_cast<const int*>(qp), m,
-        static_cast<const int*>(seg_of_group), n_planes, goe, ge,
-        static_cast<int*>(ch), static_cast<int*>(cf), static_cast<int*>(out));
-  }
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  int threads;
+  size_t shared;
+  const cudaError_t err =
+      hg_launch_shape(sw_ragged_packed_kernel, V, m, &threads, &shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw_ragged_packed_kernel<<<n_rows, threads, shared,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, static_cast<const int*>(seg_of_group),
+      n_planes, goe, ge, static_cast<int2*>(carry), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
-// Strip walk shared by four of the package's five Smith-Waterman / Gotoh
-// kernels (sw_ragged.cu over the whole-DB tile stream, sw_chunk.cu over
-// rectangular chunks); sw_ragged_kernel has the walk of sw_walk_hg.cuh,
-// which shares this file's layout, recurrence and constants.
+// Strip walk of the two query-tile kernels among the package's five
+// Smith-Waterman / Gotoh kernels: sw_ragged_qtile_kernel (sw_ragged.cu, over
+// the whole-DB tile stream) and sw_chunk_qtile_kernel (sw_chunk.cu, over
+// rectangular chunks), whose interface is the carries in and out. The three
+// kernels that take a whole profile have the walk of sw_walk_hg.cuh, which
+// shares this file's layout, recurrence and constants.
 //
 // Layout. A block of the database is one contiguous (npos, V) int8 array:
 // npos db positions of V lanes (sequences). One CUDA block per DB block,
@@ -59,8 +61,6 @@ constexpr int NEG = -(1 << 28);   // E/F floor: E - ge and F - ge chains
                                   // NEG - ge can never wrap
 constexpr int STRIP = 32;         // rows per full strip
 constexpr int STRIP_TAIL = 8;     // rows per remainder strip (m % 8 == 0)
-constexpr int SEG_ROWS = 8;       // rows per segment group of a packed
-                                  // multi-query profile
 
 // Stage profile rows [r0, r0 + R) as prof[r * 32 + code].
 template <int R>
@@ -77,35 +77,22 @@ __device__ __forceinline__ void stage_profile(int* __restrict__ prof,
 }
 
 // Sweep one strip of R query rows over a block's npos db positions for
-// lane v. codes/ch/cf point at the block's first position (stride V).
-// READ: the row above comes from the carry (else H = 0, F = NEG).
-// WRITE: store the strip's bottom-row H and the F entering the next row.
-// SEG (packed multi-query profile): fcap[g] caps the F entering the first
-// row of the strip's g-th 8-row group — NEG where the group starts a new
-// segment, so that no gap runs from one query into the next, INT_MAX
-// elsewhere (a min, not a branch: a branch every 8 rows would cut the
-// unrolled rows into separately scheduled pieces) — and the running
-// maximum is kept per group and stored to gmax[R / 8] at the end instead
-// of being returned.
-template <int R, bool READ, bool WRITE, bool CEIL, bool SEG>
+// lane v. codes/ch/cf point at the block's first position (stride V). The
+// row above comes from the carry, and the strip's bottom-row H and the F
+// entering the next row are stored in its place. Returns the running
+// maximum, which starts at smax.
+template <int R>
 __device__ __forceinline__ int strip_walk(const int8_t* __restrict__ codes,
                                           int64_t npos, int V,
                                           const int* __restrict__ prof,
-                                          int goe, int ge, int ceiling,
+                                          int goe, int ge,
                                           int* __restrict__ ch,
-                                          int* __restrict__ cf, int smax,
-                                          const int* fcap, int* gmax) {
-  constexpr int G = SEG ? R / SEG_ROWS : 1;
-  int h[R], e[R], cap[G], gm[G];
+                                          int* __restrict__ cf, int smax) {
+  int h[R], e[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     h[r] = 0;
     e[r] = NEG;
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    cap[g] = SEG ? fcap[g] : 0;
-    gm[g] = 0;
   }
   int diag_top = 0;                   // H(row above, j - 1)
   // The next position's code and carries are loaded one iteration ahead,
@@ -115,106 +102,58 @@ __device__ __forceinline__ int strip_walk(const int8_t* __restrict__ codes,
   int code_next = 0, ch_next = 0, cf_next = NEG;
   if (npos > 0) {
     code_next = codes[0];
-    if (READ) {
-      ch_next = ch[0];
-      cf_next = cf[0];
-    }
+    ch_next = ch[0];
+    cf_next = cf[0];
   }
   for (int64_t p = 0; p < npos; ++p) {
     const int64_t off = p * V;
     const int code = code_next & (TABLE_CODES - 1);
-    int f = NEG;                      // F entering the strip's first row
     int diag = diag_top;
-    if (READ) {
-      diag_top = ch_next;
-      f = cf_next;
-    }
+    diag_top = ch_next;
+    int f = cf_next;                  // F entering the strip's first row
     if (p + 1 < npos) {
       code_next = codes[off + V];
-      if (READ) {
-        ch_next = ch[off + V];
-        cf_next = cf[off + V];
-      }
+      ch_next = ch[off + V];
+      cf_next = cf[off + V];
     }
     const int* __restrict__ col = prof + code;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (SEG && r % SEG_ROWS == 0) f = min(f, cap[r / SEG_ROWS]);
       const int er = max(h[r] - goe, e[r] - ge);
-      int hn = max(max(diag + col[r * TABLE_CODES], er), max(f, 0));
-      if (CEIL) hn = min(hn, ceiling);
+      const int hn = max(max(diag + col[r * TABLE_CODES], er), max(f, 0));
       diag = h[r];
       h[r] = hn;
       e[r] = er;
-      if (SEG) {
-        gm[r / SEG_ROWS] = max(gm[r / SEG_ROWS], hn);
-      } else {
-        smax = max(smax, hn);
-      }
+      smax = max(smax, hn);
       f = max(hn - goe, f - ge);
     }
-    if (WRITE) {
-      ch[off] = h[R - 1];
-      cf[off] = f;
-    }
-  }
-  if (SEG) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) gmax[g] = gm[g];
+    ch[off] = h[R - 1];
+    cf[off] = f;
   }
   return smax;
 }
 
-template <int R, bool CEIL, bool SEG>
-__device__ __forceinline__ int strip_dispatch(bool rd, bool wr,
-                                              const int8_t* codes,
-                                              int64_t npos, int V,
-                                              const int* prof, int goe,
-                                              int ge, int ceiling, int* ch,
-                                              int* cf, int smax,
-                                              const int* fcap, int* gmax) {
-  if (rd && wr)
-    return strip_walk<R, true, true, CEIL, SEG>(
-        codes, npos, V, prof, goe, ge, ceiling, ch, cf, smax, fcap, gmax);
-  if (rd)
-    return strip_walk<R, true, false, CEIL, SEG>(
-        codes, npos, V, prof, goe, ge, ceiling, ch, cf, smax, fcap, gmax);
-  if (wr)
-    return strip_walk<R, false, true, CEIL, SEG>(
-        codes, npos, V, prof, goe, ge, ceiling, ch, cf, smax, fcap, gmax);
-  return strip_walk<R, false, false, CEIL, SEG>(
-      codes, npos, V, prof, goe, ge, ceiling, ch, cf, smax, fcap, gmax);
-}
-
-// Walk every strip of an m-row query over one block of npos positions.
-// codes/ch/cf point at this thread's lane of the block's first position.
-// carry_in: the first strip reads the carry; carry_out: the last strip
-// writes it. Returns the lane's maximum H.
-template <bool CEIL>
-__device__ int walk_block(const int8_t* __restrict__ codes, int64_t npos,
-                          int V, const int* __restrict__ qp, int m, int goe,
-                          int ge, int ceiling, int* ch, int* cf,
-                          bool carry_in, bool carry_out) {
+// Walk every strip of an m-row query tile over one block of npos
+// positions. codes/ch/cf point at this thread's lane of the block's first
+// position; ch/cf hold the row above the tile on entry and the tile's own
+// bottom row on exit. Returns the lane's maximum H over the tile's rows.
+__device__ inline int walk_block(const int8_t* __restrict__ codes,
+                                 int64_t npos, int V,
+                                 const int* __restrict__ qp, int m, int goe,
+                                 int ge, int* ch, int* cf) {
   __shared__ int prof[STRIP * TABLE_CODES];
   const int n_full = m / STRIP;
-  const int n_tail = (m % STRIP) / STRIP_TAIL;
-  const int n_strips = n_full + n_tail;
+  const int n_strips = n_full + (m % STRIP) / STRIP_TAIL;
   int smax = 0;
   for (int s = 0; s < n_strips; ++s) {
-    const bool rd = s > 0 || carry_in;
-    const bool wr = s < n_strips - 1 || carry_out;
     if (s < n_full) {
       stage_profile<STRIP>(prof, qp, m, s * STRIP);
-      smax = strip_dispatch<STRIP, CEIL, false>(rd, wr, codes, npos, V, prof,
-                                                goe, ge, ceiling, ch, cf,
-                                                smax, nullptr, nullptr);
+      smax = strip_walk<STRIP>(codes, npos, V, prof, goe, ge, ch, cf, smax);
     } else {
       const int r0 = n_full * STRIP + (s - n_full) * STRIP_TAIL;
       stage_profile<STRIP_TAIL>(prof, qp, m, r0);
-      smax = strip_dispatch<STRIP_TAIL, CEIL, false>(rd, wr, codes, npos, V,
-                                                     prof, goe, ge, ceiling,
-                                                     ch, cf, smax, nullptr,
-                                                     nullptr);
+      smax = strip_walk<STRIP_TAIL>(codes, npos, V, prof, goe, ge, ch, cf,
+                                    smax);
     }
   }
   return smax;

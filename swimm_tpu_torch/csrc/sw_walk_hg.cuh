@@ -1,8 +1,11 @@
-// The walk of sw_ragged_kernel (sw_ragged.cu), which replaces
-// swimm_tpu/ops/pallas_scorer.py _dp_ragged_kernel (via score_tiles): the
-// recurrence of sw_walk.cuh, rewritten for what bounds it on an H100 and
-// worked by cooperating workers per DB block. The other four kernels keep
-// the walk of sw_walk.cuh.
+// The walk of the three kernels that score a profile of at most 2048 rows
+// with no carries in or out: sw_ragged_kernel and sw_ragged_packed_kernel
+// (sw_ragged.cu; they replace swimm_tpu/ops/pallas_scorer.py
+// _dp_ragged_kernel via score_tiles and _dp_packed_kernel via
+// score_tiles_packed) and sw_chunk_kernel (sw_chunk.cu; _dp_kernel via
+// score_chunk). It is the recurrence of sw_walk.cuh, rewritten for what
+// bounds it on an H100 and worked by cooperating workers per DB block. The
+// two query-tile kernels keep the walk of sw_walk.cuh.
 //
 // What bounds it. Measured on an NVIDIA H100 80GB HBM3 at 700 W: VIADDMNMX
 // and VIMNMX3 start at 62 thread-instructions per clock per SM, half of
@@ -39,6 +42,26 @@
 // Writing hg as max(t0, f) - goe (two full-rate instructions for one
 // half-rate) was 4% slower: instruction slots weigh more than the pipe.
 //
+// The packed form (PACKED: a profile of several queries one under the
+// other, sw_ragged.cu tells the layout) differs in two places. The F that
+// enters the first row of an 8-row group is capped, f = min(f, cap[g]),
+// with cap[g] = NEG where the group starts a new segment and INT_MAX
+// elsewhere, so that no gap runs from one query into the next: a min on the
+// chain's input, one instruction per 8 rows, not a branch (a branch every 8
+// rows would cut the unrolled rows into separately scheduled pieces). Row 0
+// of a strip is a group start, so the cap also meets the F that arrives
+// from the worker above through the ring or the carry stream. And the
+// running maximum is kept per group, gm[g] = max(gm[g], t0, t0'), the same
+// count of instructions. It is still a maximum of t0 and still exact for
+// every query: an H that comes from F is no higher than the H its gap
+// opened from, and with F capped at every segment start that H lies in the
+// same segment, so in the same score plane. The staged profile holds
+// SEP_SCORE + goe in separator rows, still far below any DP value, so they
+// come out as t0 = 0, hg = -goe, and the next query's first row sees the
+// boundary of a query run alone; gap_open = 0 and gap_extend = 0 included.
+// When a worker finishes a strip it folds the strip's group maxima into
+// the planes (fold_groups).
+//
 // Cooperating workers. A CUDA block of S * V threads takes one DB block;
 // worker k (V threads, one per lane) takes strips k, k + S, ... and runs one
 // step of D db positions behind worker k - 1, which hands it the strip's
@@ -66,6 +89,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include "sw_walk.cuh"
 
 namespace sw {
@@ -73,7 +98,17 @@ namespace sw {
 constexpr int HG_STEP = 32;         // D: db positions per lock step (S > 1)
 constexpr int HG_AHEAD = 2;         // positions the loads run ahead
 constexpr int HG_MAX_WORKERS = 2;   // S at most
-constexpr int HG_MAX_THREADS = 512; // S * V at most
+constexpr int HG_MAX_THREADS = 512; // S * V at most, so V at most
+constexpr int SEG_ROWS = 8;         // rows per segment group of a packed
+                                    // multi-query profile
+constexpr int STRIP_GROUPS = STRIP / SEG_ROWS;
+
+// Where the packed form reads its segment ids and keeps its planes.
+struct PackedPlanes {
+  const int* seg_of_group;   // (m / 8,) nondecreasing segment ids
+  int n_planes;
+  int* planes;               // the DB block's plane 0 (plane stride V)
+};
 
 // Shared memory of a block of `workers` workers of V lanes, in ints: one
 // staged profile strip per worker, then two ring slots of HG_STEP x V
@@ -99,12 +134,15 @@ __device__ __forceinline__ void worker_sync(int k, int V, int workers) {
 // (stride V). top/bot point at this lane's first (hg, F) pair of the row
 // above / of this strip's bottom row (stride V; shared or device memory),
 // or are null: no row above (H = 0, F = NEG), nothing below. hg/e/diag_top
-// carry the strip's state from step to step. As in sw_walk.cuh the loads of
-// a position's code and top pair are started ahead of its turn, here
-// HG_AHEAD positions.
-template <int R, bool CEIL>
+// carry the strip's state from step to step. gm holds the running maximum:
+// one for the lane (G == 1), or one per 8-row group of the strip in the
+// packed form (G == STRIP_GROUPS), where cap holds the groups' caps on F.
+// As in sw_walk.cuh the loads of a position's code and top pair are started
+// ahead of its turn, here HG_AHEAD positions.
+template <int R, bool CEIL, int G>
 __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
-                                        int& diag_top, int& smax,
+                                        int& diag_top, int (&gm)[G],
+                                        const int (&cap)[G],
                                         const int8_t* __restrict__ codes,
                                         int n, int V,
                                         const int* __restrict__ prof,
@@ -139,11 +177,14 @@ __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
     int tprev = 0;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
+      constexpr bool packed = G > 1;
+      const int g = packed ? r / SEG_ROWS : 0;
+      if (packed && r % SEG_ROWS == 0) f = min(f, cap[g]);
       const int en = __viaddmax_s32(e[r], nge, hg[r]);
       int t0 = __viaddmax_s32_relu(diag, col[r * TABLE_CODES], en);
       if (CEIL) t0 = min(t0, ceiling);
       if (r & 1) {
-        smax = __vimax3_s32(smax, tprev, t0);
+        gm[g] = __vimax3_s32(gm[g], tprev, t0);
       } else {
         tprev = t0;
       }
@@ -157,16 +198,44 @@ __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
   }
 }
 
-// Walk every strip of an m-row query over one DB block of npos positions
+// Fold the group maxima of the strip that starts at group g0 (rows / 8
+// groups) into this lane's planes: even segment ids are queries (plane id /
+// 2); odd ids (separators, the tail) and ids past the planes are dropped.
+// The ids are read here and not kept through the strip, to spare its
+// registers. Two workers share a lane's planes, and one query's rows may
+// span both workers' strips, so the fold is an atomic maximum (a reduction
+// without a return value: the thread does not wait for it). A plain
+// read-max-write would also be safe under the lock step (no two workers
+// finish a strip in the same step, and a barrier ends every step), but it
+// was no faster: 84.0 against 84.1 ms for a 1024-row pack over a
+// 570,000-sequence stream (NVIDIA H100 80GB HBM3, 700 W), and the atomic
+// does not lean on the schedule.
+__device__ __forceinline__ void fold_groups(const PackedPlanes& pk, int V,
+                                            int g0, int rows,
+                                            const int (&gm)[STRIP_GROUPS]) {
+#pragma unroll
+  for (int g = 0; g < STRIP_GROUPS; ++g) {
+    if (g * SEG_ROWS < rows) {
+      const int sid = pk.seg_of_group[g0 + g];
+      if (sid >= 0 && !(sid & 1) && sid / 2 < pk.n_planes)
+        atomicMax(pk.planes + (int64_t)(sid / 2) * V, gm[g]);
+    }
+  }
+}
+
+// Walk every strip of an m-row profile over one DB block of npos positions
 // with blockDim.x / V workers. codes points at the block's first position,
 // carry at its first (hg, F) pair in the device-memory carry stream (used
 // when there are more strips than workers), smem at hg_shared_ints() ints.
-// Returns the lane's maximum H in the threads of worker 0.
-template <bool CEIL>
+// Returns the lane's maximum H in the threads of worker 0; in the packed
+// form the maxima go to pk's planes (this thread's lane of them) and
+// nothing is returned.
+template <bool CEIL, bool PACKED>
 __device__ __forceinline__ int hg_walk_block(
     const int8_t* __restrict__ codes, int npos, int V,
     const int* __restrict__ qp, int m, int goe, int ge, int ceiling,
-    int2* carry, int* smem) {
+    int2* carry, int* smem, const PackedPlanes pk) {
+  constexpr int G = PACKED ? STRIP_GROUPS : 1;
   const int S = blockDim.x / V;
   const int k = threadIdx.x / V;
   const int v = threadIdx.x - k * V;
@@ -181,8 +250,13 @@ __device__ __forceinline__ int hg_walk_block(
   int2* ring = reinterpret_cast<int2*>(smem + S * (STRIP * TABLE_CODES));
   const int slot = HG_STEP * V;              // pairs per ring slot
 
-  int hg[STRIP], e[STRIP];
-  int diag_top = -goe, smax = 0;
+  int hg[STRIP], e[STRIP], gm[G], cap[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    gm[g] = 0;
+    cap[g] = 0;
+  }
+  int diag_top = -goe;
   int s = 0, r0 = 0, rows = 0;               // this worker's current strip
   for (int t = 0; t < n_items + S - 1; ++t) {
     const int i = t - k;
@@ -200,6 +274,17 @@ __device__ __forceinline__ int hg_walk_block(
           e[r] = NEG;
         }
         diag_top = -goe;
+        if constexpr (PACKED) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            gm[g] = 0;
+            const int gi = r0 / SEG_ROWS + g;
+            const bool starts =
+                g * SEG_ROWS >= rows || gi == 0 ||
+                pk.seg_of_group[gi - 1] != pk.seg_of_group[gi];
+            cap[g] = starts ? NEG : INT_MAX;
+          }
+        }
         worker_sync(k, V, S);                // previous strip done with prof
         for (int idx = v; idx < rows * TABLE_CODES; idx += V) {
           const int r = idx / TABLE_CODES;
@@ -219,16 +304,21 @@ __device__ __forceinline__ int hg_walk_block(
       if (s < n_strips - 1)
         bot = k < S - 1 ? ring + (k * 2 + (t & 1)) * slot + v : carry + off;
       if (rows == STRIP) {
-        hg_step<STRIP, CEIL>(hg, e, diag_top, smax, codes + off, n, V, prof,
-                             top, bot, goe, -ge, ceiling);
+        hg_step<STRIP, CEIL>(hg, e, diag_top, gm, cap, codes + off, n, V,
+                             prof, top, bot, goe, -ge, ceiling);
       } else {
-        hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, smax, codes + off, n, V,
-                                  prof, top, bot, goe, -ge, ceiling);
+        hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, gm, cap, codes + off, n,
+                                  V, prof, top, bot, goe, -ge, ceiling);
+      }
+      if constexpr (PACKED) {
+        if (c == nc - 1)                     // the strip is done
+          fold_groups(pk, V, r0 / SEG_ROWS, rows, gm);
       }
     }
     if (S > 1) __syncthreads();
   }
-  if (S > 1) {                               // fold the workers' maxima
+  int smax = gm[0];
+  if (!PACKED && S > 1) {                    // fold the workers' maxima
     int* red = reinterpret_cast<int*>(ring);
     red[k * V + v] = smax;
     __syncthreads();
@@ -236,6 +326,26 @@ __device__ __forceinline__ int hg_walk_block(
       for (int w = 1; w < S; ++w) smax = max(smax, red[w * V + v]);
   }
   return smax;
+}
+
+// Launch shape of a kernel built on hg_walk_block for V lanes and an m-row
+// profile: threads per block and dynamic shared memory, which the kernel is
+// allowed here. Workers per DB block: as many as HG_MAX_WORKERS, the thread
+// limit and the strip count allow; workers synchronise by warps, so lanes
+// that do not fill whole warps get one.
+template <class Kernel>
+inline cudaError_t hg_launch_shape(Kernel kernel, int V, int m, int* threads,
+                                   size_t* shared) {
+  int workers = HG_MAX_THREADS / V < HG_MAX_WORKERS ? HG_MAX_THREADS / V
+                                                    : HG_MAX_WORKERS;
+  const int n_strips = m / STRIP + (m % STRIP) / STRIP_TAIL;
+  if (workers > n_strips) workers = n_strips;
+  if (workers < 1 || V % 32) workers = 1;
+  *threads = workers * V;
+  *shared = hg_shared_ints(workers, V) * sizeof(int);
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*shared));
 }
 
 }  // namespace sw

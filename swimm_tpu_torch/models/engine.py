@@ -149,10 +149,10 @@ class QueryResult:
 
 def device_bytes_needed(packed: PackedDb, query_pack: bool = False) -> int:
     """Device memory the resident path needs: the int8 tile stream, its
-    (T,) row map, the lane maps, and the int32 carry scratch (two streams
-    shaped like the tiles: 8 bytes per tile byte) that multi-strip and
-    long queries use. With query_pack, also one pack's score planes and
-    their int64 top-k keys (4 + 8 bytes per plane lane)."""
+    (T,) row map, the lane maps, and the int32 carry scratch (8 bytes per
+    tile byte) that multi-strip and long queries use. With query_pack, also
+    one pack's score planes and their int64 top-k keys (4 + 8 bytes per
+    plane lane)."""
     tiles, outrow, n_rows = packed.flat_tiles()
     lanes = n_rows * int(packed.manifest["V"])
     need = tiles.nbytes * 9 + outrow.nbytes + lanes * 5 + 8 * (n_rows + 1)
@@ -380,19 +380,15 @@ def search_fused(packed: PackedDb, query: FastaRecord, config: SearchConfig,
 
 
 def _chunk_scorer(config: SearchConfig):
-    """chunks, their ChunkTable, qp (32, m) -> list of (B, V) scores: the
-    one-pass chunk kernel, one launch per chunk, up to max_query_pad()
-    rows; else the query-tiled one, one launch per query tile over all the
-    chunks, which raises if the carries of all chunks (8 bytes per code
-    byte) would not fit in the device memory that is free or held unused
-    by PyTorch's allocator."""
+    """chunks, their ChunkTable, qp (32, m) -> list of (B, V) scores, every
+    launch over all the chunks at once: the one-pass chunk kernel, one
+    launch, up to max_query_pad() rows; else the query-tiled one, one launch
+    per query tile. Either raises if the carries of all chunks (8 bytes per
+    code byte, allocated once per call) would not fit in the device memory
+    that is free or held unused by PyTorch's allocator."""
     prec = kernel_precision(config)
 
     def dispatch(chunks, table, qp):
-        if qp.shape[1] <= scorer.max_query_pad():
-            return [scorer.score_chunk(codes, qp, config.gap_open,
-                                       config.gap_extend, precision=prec)
-                    for codes in chunks]
         dev = table.device
         if dev.type == "cuda":
             free = (torch.cuda.mem_get_info(dev)[0]
@@ -401,8 +397,12 @@ def _chunk_scorer(config: SearchConfig):
             need = 8 * table.numel
             if need > free:
                 raise RuntimeError(
-                    f"the long query's carries need {need / 1e9:.2f} GB of "
+                    f"the query's carries need {need / 1e9:.2f} GB of "
                     f"device memory but {free / 1e9:.2f} GB is free")
+        if qp.shape[1] <= scorer.max_query_pad():
+            return scorer.score_chunks(chunks, qp, config.gap_open,
+                                       config.gap_extend, precision=prec,
+                                       table=table)
         return longquery.score_chunks_long(
             chunks, qp, config.gap_open, config.gap_extend, precision=prec,
             table=table)
@@ -413,9 +413,8 @@ def _chunk_scorer(config: SearchConfig):
 def score_db(packed: PackedDb, query: FastaRecord,
              config: SearchConfig | None = None, device=None) -> np.ndarray:
     """All-lane scores for one query, in sorted-db order (n_seqs,) int32:
-    one scorer call per chunk (a long query: one per query tile over all
-    chunks), all launched before the one synchronising device-to-host
-    copy."""
+    one kernel launch over all chunks (a long query: one per query tile),
+    all launched before the one synchronising device-to-host copy."""
     config = config or SearchConfig()
     check_supported(config)
     chunks, table = device_chunk_table(packed, device)

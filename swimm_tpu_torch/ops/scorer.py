@@ -8,12 +8,13 @@ runs its plain PyTorch version (``*_ref``) on a CPU tensor:
 
   score_tiles         sw_ragged_kernel         (csrc/sw_ragged.cu)
   score_tiles_packed  sw_ragged_packed_kernel  (csrc/sw_ragged.cu)
-  score_chunk         sw_chunk_kernel          (csrc/sw_chunk.cu)
+  score_chunks        sw_chunk_kernel          (csrc/sw_chunk.cu)
 
-There is no fallback from one to the other: a CUDA tensor either reaches
-the kernel or raises. ``ChunkTable`` is what a chunk kernel needs to take
-a list of chunks in one launch (sw_chunk_qtile_kernel, through
-ops/longquery.py, does).
+(``score_chunk`` is the one-chunk case of ``score_chunks``.) There is no
+fallback from one to the other: a CUDA tensor either reaches the kernel or
+raises. ``ChunkTable`` is what the chunk kernels need to take a list of
+chunks in one launch (sw_chunk_kernel here, sw_chunk_qtile_kernel through
+ops/longquery.py).
 
 The plain versions share ``walk_ref``, the column-vectorised two-pass
 recurrence of xla_scorer.score_tiles in int32: per db position,
@@ -35,6 +36,12 @@ import torch
 
 NEG = -(1 << 28)   # same floor as the CUDA kernels (csrc/sw_ragged.cu)
 JT = 32            # db positions per tile (PackedDb.flat_tiles)
+MAX_LANES = 512    # lane width V at most: a CUDA block has a thread per lane
+# (per worker). Three kernels are compiled for at most 512 threads (csrc/
+# sw_walk_hg.cuh HG_MAX_THREADS), and the two query-tile kernels hold over
+# 100 registers a thread, so an SM has no room for more: on an H100 all five
+# launch at V = 512 and none at V = 544. The same limit on every device, so
+# the CPU tests see the card's
 
 
 def check_gaps(gap_open: int, gap_extend: int) -> None:
@@ -79,14 +86,18 @@ def check_profile(qp) -> None:
                          "multiple of 8")
 
 
+def check_lanes(V: int) -> None:
+    if not 0 < V <= MAX_LANES:
+        raise ValueError(f"lane width V={V} must be in 1..{MAX_LANES}")
+
+
 def check_stream(tiles, outrow, qp, row_start=None) -> None:
     """Shape/type/device/contiguity checks shared by the stream kernels."""
     if tiles.dim() != 3 or tiles.dtype != torch.int8:
         raise ValueError(f"tiles must be (T, jt, V) int8 (got "
                          f"{tuple(tiles.shape)} {tiles.dtype})")
     T, jt, V = tiles.shape
-    if not 0 < V <= 1024:
-        raise ValueError(f"lane width V={V} must be in 1..1024")
+    check_lanes(V)
     if outrow.shape != (T,) or outrow.dtype != torch.int32:
         raise ValueError(f"outrow must be ({T},) int32")
     check_profile(qp)
@@ -203,12 +214,11 @@ RAGGED_SIGNATURES = {
     "sw_ragged_qtile_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR, _PTR],
     "sw_ragged_packed_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
-                                _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR,
-                                _PTR],
+                                _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR],
 }
 CHUNK_SIGNATURES = {
-    "sw_chunk_launch": [_PTR, _INT, _INT, _INT, _PTR, _INT, _INT, _INT,
-                        _INT, _INT, _PTR, _PTR, _PTR, _PTR],
+    "sw_chunk_launch": [_PTR, _PTR, _PTR, _INT, _INT, _PTR, _INT, _INT,
+                        _INT, _INT, _INT, _PTR],
     "sw_chunk_qtile_launch": [_PTR, _PTR, _PTR, _INT, _INT, _PTR, _INT,
                               _INT, _INT, _PTR],
 }
@@ -222,8 +232,8 @@ def kernels():
 
 
 def chunk_kernels():
-    """The built sw_chunk library: the two kernels over one rectangular
-    chunk (compiled on first call)."""
+    """The built sw_chunk library: the two kernels over a list of
+    rectangular chunks (compiled on first call)."""
     from swimm_tpu_torch.ops import _build
     return _build.load("sw_chunk", CHUNK_SIGNATURES)
 
@@ -242,14 +252,14 @@ def raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def strip_scratch(m: int, like: torch.Tensor):
+def strip_carry(m: int, shape, device):
     """Carry scratch between the strips of an m-row profile (32 rows, then
-    8): two int32 tensors shaped like the codes, or (None, None) when the
-    profile fits one strip. Returned so they outlive the launch call."""
+    8) for the kernels on the walk of csrc/sw_walk_hg.cuh: one (H - goe, F)
+    int32 pair per code byte, shaped (*shape, 2), or None when the profile
+    fits one strip. Returned so it outlives the launch call."""
     if m // 32 + (m % 32) // 8 <= 1:
-        return None, None
-    ch = torch.empty(like.shape, dtype=torch.int32, device=like.device)
-    return ch, torch.empty_like(ch)
+        return None
+    return torch.empty((*shape, 2), dtype=torch.int32, device=device)
 
 
 def _ptr(t):
@@ -293,12 +303,7 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
     T, jt, V = tiles.shape
     m = qp.shape[1]
     out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
-    # carry scratch between strips: one (H - goe, F) int32 pair per (db
-    # position, lane); a one-strip profile needs none
-    carry = None
-    if m > 8:
-        carry = torch.empty((T, jt, V, 2), dtype=torch.int32,
-                            device=tiles.device)
+    carry = strip_carry(m, tiles.shape, tiles.device)
     err = kernels().sw_ragged_launch(
         tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
         qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
@@ -393,12 +398,12 @@ def score_tiles_packed(tiles, outrow, n_rows: int, qp, seg_of_group,
     n_planes = n_seg_cap // 2
     out = torch.zeros((n_rows, n_planes, V), dtype=torch.int32,
                       device=tiles.device)
-    ch, cf = strip_scratch(m, tiles)
+    carry = strip_carry(m, tiles.shape, tiles.device)
     err = kernels().sw_ragged_packed_launch(
         tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
         qp.data_ptr(), m, seg_of_group.data_ptr(), n_planes,
-        gap_open + gap_extend, gap_extend, _ptr(ch), _ptr(cf),
-        out.data_ptr(), torch.cuda.current_stream(tiles.device).cuda_stream)
+        gap_open + gap_extend, gap_extend, _ptr(carry), out.data_ptr(),
+        torch.cuda.current_stream(tiles.device).cuda_stream)
     raise_on(err, "sw_ragged_packed_kernel")
     score_tiles_packed.launches += 1
     return out
@@ -416,8 +421,7 @@ def check_chunk(codes, qp) -> None:
     if L == 0 or L % JT:
         raise ValueError(f"chunk length L={L} must be a positive multiple "
                          f"of {JT}")
-    if not 0 < V <= 1024:
-        raise ValueError(f"lane width V={V} must be in 1..1024")
+    check_lanes(V)
     check_profile(qp)
     if codes.device != qp.device:
         raise ValueError("codes and qp must share a device")
@@ -438,7 +442,7 @@ class ChunkTable:
       codes0     the lowest codes address of the list (the kernel addresses
                  every chunk's codes from it);
       out_views, carry_views  per-chunk views of a flat (n_blocks, V)
-                 output and of a flat carry buffer of ``numel`` elements,
+                 output and of a flat carry buffer of ``numel`` entries,
                  for callers that allocate those once for the whole list;
       bind()     the device table of descriptors for one call.
     """
@@ -484,10 +488,13 @@ class ChunkTable:
 
     def bind(self, hcars, fcars, outs) -> torch.Tensor:
         """The (n, 6) int64 descriptor table on the device for one call:
-        the cached rows with this call's carry and output addresses."""
+        the cached rows with this call's carry and output addresses, chunk
+        for chunk. hcars / fcars may be None for a kernel that does not
+        take them (a null address)."""
         desc = self._desc.copy()
         for col, tensors in ((1, hcars), (2, fcars), (3, outs)):
-            desc[:, col] = [t.data_ptr() for t in tensors]
+            if tensors is not None:
+                desc[:, col] = [t.data_ptr() for t in tensors]
         return torch.from_numpy(desc).to(self.device)
 
     def out_views(self, out: torch.Tensor) -> list:
@@ -496,9 +503,10 @@ class ChunkTable:
         return [out[a:b] for a, b in zip(fb[:-1], fb[1:])]
 
     def carry_views(self, flat: torch.Tensor) -> list:
-        """Per-chunk (B, L, V) views of a flat (numel,) carry buffer."""
+        """Per-chunk (B, L, V, ...) views of a flat (numel, ...) carry
+        buffer."""
         fp = self.first_pos
-        return [flat[a:b].view(c.shape)
+        return [flat[a:b].view(*c.shape, *flat.shape[1:])
                 for a, b, c in zip(fp[:-1], fp[1:], self.chunks)]
 
 
@@ -521,54 +529,87 @@ def score_chunk_ref(codes, qp, gap_open: int, gap_extend: int,
                     gap_extend, ceiling)[0]
 
 
+def score_chunks(chunks, qp, gap_open: int, gap_extend: int,
+                 precision: str = "f32", ceiling: int | None = None,
+                 table: ChunkTable | None = None) -> list:
+    """Score every lane of a LIST of packed chunks against one query. On
+    CUDA tensors: ONE launch of sw_chunk_kernel over every block of every
+    chunk; on CPU tensors: score_chunk_ref chunk by chunk.
+
+    Args:
+      chunks: list of (B, L, V) int8 packed db codes (any B and L, one V,
+        one device; separate allocations or views of one); L % 32 == 0
+        (guaranteed by db.py's length quantization).
+      qp: (32, m) int32 query profile; m % 8 == 0, m <= max_query_pad().
+      precision: 'f32' | 'int32' — both compute exact int32.
+      ceiling: as score_tiles.
+      table: optional cached ChunkTable(chunks).
+
+    Returns: list of (B_i, V) int32 exact local-alignment scores (views of
+    one flat output on a CUDA device). The strip carries of all chunks are
+    one buffer allocated per call (8 bytes per code byte; none for a
+    one-strip profile).
+    """
+    check_gaps(gap_open, gap_extend)
+    check_precision(precision)
+    for codes in chunks:
+        check_chunk(codes, qp)
+    m = qp.shape[1]
+    if m > max_query_pad():
+        raise ValueError(f"profile length {m} exceeds max_query_pad()="
+                         f"{max_query_pad()}; use "
+                         "longquery.score_chunks_long")
+    if table is None:
+        table = ChunkTable(chunks)
+    elif not table.matches(chunks):
+        raise ValueError("table was built for other chunks")
+    if table.device.type == "cpu":
+        return [score_chunk_ref(codes, qp, gap_open, gap_extend, ceiling)
+                for codes in chunks]
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    out = torch.empty((table.n_blocks, table.V), dtype=torch.int32,
+                      device=table.device)
+    outs = table.out_views(out)
+    carry = strip_carry(m, (table.numel,), table.device)
+    desc = table.bind(None if carry is None else table.carry_views(carry),
+                      None, outs)
+    err = chunk_kernels().sw_chunk_launch(
+        table.codes0, desc.data_ptr(), table.block_map.data_ptr(),
+        table.n_blocks, table.V, qp.data_ptr(), m, gap_open + gap_extend,
+        gap_extend, int(ceiling is not None), int(ceiling or 0),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    raise_on(err, "sw_chunk_kernel")
+    score_chunks.launches += 1
+    return outs
+
+
+score_chunks.launches = 0   # sw_chunk_kernel launches
+
+
 def score_chunk(codes, qp, gap_open: int, gap_extend: int,
                 precision: str = "f32", jt_steps: int | None = None,
                 ceiling: int | None = None,
                 lanes_per_block: int | None = None) -> torch.Tensor:
     """Score every lane of one packed chunk against one query in ONE
-    kernel launch.
+    kernel launch: the one-chunk case of score_chunks.
 
     Args:
-      codes: (B, L, V) int8 packed db codes; L % 32 == 0 (guaranteed by
-        db.py's length quantization).
-      qp: (32, m) int32 query profile; m % 8 == 0, m <= max_query_pad().
-      precision: 'f32' | 'int32' — both compute exact int32.
+      codes: (B, L, V) int8 packed db codes; L % 32 == 0.
+      qp, precision, ceiling: as score_chunks.
       jt_steps, lanes_per_block: the JAX package's tiling choices for its
         kernel grid, accepted and validated for its contract (jt_steps must
         divide L, lanes_per_block must be positive); results do not depend
         on them and the CUDA kernel has no use for them.
-      ceiling: as score_tiles.
 
     Returns: (B, V) int32 exact local-alignment scores.
     """
-    check_gaps(gap_open, gap_extend)
-    check_precision(precision)
     check_chunk(codes, qp)
-    B, L, V = codes.shape
-    m = qp.shape[1]
-    if m > max_query_pad():
-        raise ValueError(f"profile length {m} exceeds max_query_pad()="
-                         f"{max_query_pad()}; use "
-                         "longquery.score_chunk_long")
+    L = codes.shape[1]
     if jt_steps is not None and (jt_steps <= 0 or L % jt_steps):
         raise ValueError(f"L={L} not a multiple of jt_steps={jt_steps}")
     if lanes_per_block is not None and lanes_per_block <= 0:
         raise ValueError(f"lanes_per_block={lanes_per_block} must be "
                          "positive")
-    if codes.device.type == "cpu":
-        return score_chunk_ref(codes, qp, gap_open, gap_extend, ceiling)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    out = torch.empty((B, V), dtype=torch.int32, device=codes.device)
-    ch, cf = strip_scratch(m, codes)
-    err = chunk_kernels().sw_chunk_launch(
-        codes.data_ptr(), B, L, V, qp.data_ptr(), m, gap_open + gap_extend,
-        gap_extend, int(ceiling is not None), int(ceiling or 0), _ptr(ch),
-        _ptr(cf), out.data_ptr(),
-        torch.cuda.current_stream(codes.device).cuda_stream)
-    raise_on(err, "sw_chunk_kernel")
-    score_chunk.launches += 1
-    return out
-
-
-score_chunk.launches = 0   # sw_chunk_kernel launches
+    return score_chunks([codes], qp, gap_open, gap_extend, precision,
+                        ceiling)[0]

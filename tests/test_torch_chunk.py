@@ -1,5 +1,5 @@
 """swimm_tpu_torch's per-chunk scorers (plain PyTorch path of score_chunk,
-score_chunk_qtile and score_chunk_long) against the JAX package's Pallas
+score_chunks, score_chunk_qtile and score_chunk_long) against the JAX package's Pallas
 chunk kernels (interpret mode), its XLA chunk scorer and the numpy Gotoh
 oracle. Tolerance: bit-exact int32 — every path computes exact integers."""
 
@@ -196,6 +196,60 @@ def test_score_chunks_long_list_vs_one_chunk_pallas_and_one_pass(seed, qlen,
                                            tile_m=32)))
 
 
+@pytest.mark.parametrize("ceiling,with_table", [(None, False), (None, True),
+                                                (14, False), (14, True)])
+def test_score_chunks_list_vs_one_chunk_pallas_and_oracle(ceiling,
+                                                          with_table):
+    # separately allocated chunks of different B and L, the longest neither
+    # first nor last: the list form gives, chunk for chunk, score_chunk's
+    # scores, the JAX package's and the oracle's
+    q, qp, chunks = chunk_list(67, 21, [(2, 64), (1, 32), (3, 96), (1, 64)])
+    tc = [torch.from_numpy(c) for c in chunks]
+    tqp = torch.from_numpy(qp)
+    table = scorer.ChunkTable(tc) if with_table else None
+    got = scorer.score_chunks(tc, tqp, 10, 2, ceiling=ceiling, table=table)
+    assert len(got) == len(chunks)
+    hit_ceiling = False
+    for codes, c, g in zip(chunks, tc, got):
+        assert g.dtype == torch.int32 and g.shape == codes.shape[::2]
+        assert torch.equal(g, scorer.score_chunk(c, tqp, 10, 2,
+                                                 ceiling=ceiling))
+        assert np.array_equal(g.numpy(), np.asarray(
+            pallas_scorer.score_chunk(jnp.asarray(codes), jnp.asarray(qp),
+                                      10, 2, interpret=True,
+                                      ceiling=ceiling)))
+        exact = oracle(q, codes, 10, 2)
+        if ceiling is not None:
+            hit_ceiling |= bool((exact >= ceiling).any())
+            exact = np.minimum(exact, ceiling)
+        assert np.array_equal(g.numpy(), exact)
+        assert ceiling is not None or g[-1, 2] > 60    # the planted homolog
+    assert hit_ceiling == (ceiling is not None)
+
+
+def test_score_chunks_rejects_bad_inputs():
+    _, qp, chunks = chunk_list(68, 20, [(2, 64), (1, 32), (3, 96)])
+    tc = [torch.from_numpy(c) for c in chunks]
+    tqp = torch.from_numpy(qp)
+    with pytest.raises(ValueError, match="other chunks"):
+        scorer.score_chunks(tc[:2], tqp, 10, 2,
+                            table=scorer.ChunkTable(tc))
+    with pytest.raises(ValueError, match="other chunks"):
+        scorer.score_chunks([c.clone() for c in tc], tqp, 10, 2,
+                            table=scorer.ChunkTable(tc))
+    with pytest.raises(ValueError, match="at least one chunk"):
+        scorer.score_chunks([], tqp, 10, 2)
+    with pytest.raises(ValueError, match="max_query_pad"):
+        scorer.score_chunks(tc, torch.zeros((32, 2056), dtype=torch.int32),
+                            10, 2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        scorer.score_chunks(tc + [tc[0][:, :40].contiguous()], tqp, 10, 2)
+    with pytest.raises(ValueError, match="share V"):
+        scorer.score_chunks([tc[0], tc[1][:, :, :4].contiguous()], tqp, 10, 2)
+    with pytest.raises(ValueError, match="precision"):
+        scorer.score_chunks(tc, tqp, 10, 2, precision="bf16")
+
+
 def test_chunk_table_maps_blocks_longest_first():
     _, qp, chunks = chunk_list(64, 20, [(2, 64), (1, 32), (3, 96), (1, 64)])
     tc = [torch.from_numpy(c) for c in chunks]
@@ -283,6 +337,36 @@ def test_score_db_long_query_through_the_list_form_matches_jax(tmp_path,
                                          inner(*a, **k))[1])
     got = engine.score_db(pt, q, engine.SearchConfig(), device="cpu")
     assert calls == [len(pt.chunks)] * 4   # one call per query tile
+    ref = jengine.score_db(pj, JRecord(q.title, q.codes),
+                           jengine.SearchConfig(backend="xla"))
+    assert got.dtype == np.int32 and np.array_equal(got, ref)
+    assert engine.top_k_hits(pt, got, 1)[0].title == "hom planted_homolog"
+
+
+def test_score_db_short_query_through_the_list_form_matches_jax(tmp_path,
+                                                                monkeypatch):
+    # a query of at most max_query_pad() rows takes the one-pass chunk
+    # scorer's list form: one call over all the chunks with the cached table
+    from swimm_tpu.fasta import FastaRecord as JRecord
+    from swimm_tpu.models import engine as jengine
+    from swimm_tpu_torch.fasta import FastaRecord
+    from swimm_tpu_torch.models import engine
+    from swimm_tpu_torch.utils.synth import synth_db
+    rng = np.random.default_rng(69)
+    q = FastaRecord("q", random_codes(rng, 70))
+    recs = synth_db(60, seed=12, median_len=50, max_len=150)
+    recs[23] = FastaRecord("hom planted_homolog",
+                           mutate(rng, q.codes[:60], 0.1, 0.0))
+    pt, pj = small_db(tmp_path, recs)
+    assert len(pt.chunks) > 2
+    calls = []
+    inner = scorer.score_chunks
+    monkeypatch.setattr(scorer, "score_chunks",
+                        lambda chunks, *a, **k: (
+                            calls.append((len(chunks), k.get("table"))),
+                            inner(chunks, *a, **k))[1])
+    got = engine.score_db(pt, q, engine.SearchConfig(), device="cpu")
+    assert calls == [(len(pt.chunks), engine.device_chunk_table(pt, "cpu")[1])]
     ref = jengine.score_db(pj, JRecord(q.title, q.codes),
                            jengine.SearchConfig(backend="xla"))
     assert got.dtype == np.int32 and np.array_equal(got, ref)

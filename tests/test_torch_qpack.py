@@ -145,6 +145,53 @@ def test_packed_layouts_vs_oracle(lens, bucket):
     check_against_oracle(got, p, queries, blocks, 10, 2)
 
 
+def cut_pack(pack, M):
+    """The pack's first M rows (any M % 8 == 0 is a legal profile), with
+    the entries that lie wholly inside them."""
+    entries = [e for e in pack.entries if e.row_start + e.n_rows <= M]
+    return qpack.QueryPack(np.ascontiguousarray(pack.qp[:, :M]),
+                           np.ascontiguousarray(pack.seg_of_group[:M // 8]),
+                           entries, pack.n_seg)
+
+
+# the strip shapes of the CUDA kernel's walk (32 rows, then 8; two workers
+# take alternate strips and fold their maxima into shared planes): one
+# 8-row strip without a separator; 32 + 8 rows with the second query in
+# rows 24-39; 32 + 32 + 8 rows with the second query in rows 56-71; five
+# strips under one query. A homolog of the rows just ABOVE a strip boundary
+# that the query straddles is planted, where a lost or leaked maximum would
+# show. The card check holds the kernel against the plain version on the
+# same layouts.
+@pytest.mark.parametrize("lens,M,who,rows", [
+    ((8,), 8, 0, (0, 8)),
+    ((12, 12), 40, 1, (0, 8)),
+    ((45, 12), 72, 1, (0, 8)),
+    ((130, 12), 160, 0, (24, 64)),
+])
+def test_packed_cut_to_odd_strip_counts_vs_pallas_and_oracle(lens, M, who,
+                                                             rows):
+    rng = np.random.default_rng(300 + M)
+    queries = [random_codes(rng, L) for L in lens]
+    blocks, outrow = ragged_db(rng, [64, 32, 96])
+    hom = mutate(rng, queries[who][rows[0]:rows[1]], sub_rate=0.02,
+                 indel_rate=0.0)
+    blocks[0][:len(hom), 3] = hom
+    tiles = as_tiles(blocks)
+    full = qpack.build_query_packs(queries, buckets=(256,))[0]
+    p = cut_pack(full, M)
+    assert p.M == M and [e.query_pos for e in p.entries] == list(
+        range(len(lens)))
+    e = next(e for e in p.entries if e.query_pos == who)
+    if M > 32:      # the query with the homolog straddles a strip boundary
+        assert e.row_start < 32 * (1 + e.row_start // 32) < (e.row_start
+                                                             + e.n_rows)
+    got = port_planes(tiles, outrow, len(blocks), p, 10, 2)
+    assert np.array_equal(got, jax_planes(tiles, outrow, len(blocks), p,
+                                          10, 2))
+    check_against_oracle(got, p, queries, blocks, 10, 2)
+    assert got[0, e.seg // 2, 3] >= 3 * (rows[1] - rows[0])
+
+
 def test_score_tiles_packed_rejects_bad_inputs():
     rng = np.random.default_rng(42)
     blocks, outrow = ragged_db(rng, [32])

@@ -148,6 +148,36 @@ def test_score_tiles_rejects_bad_inputs():
         port_scores(tiles, outrow, 1, big, 10, 2)
 
 
+@pytest.mark.parametrize("V,ok", [(512, True), (513, False),
+                                  (1024, False)])
+def test_lane_width_limit_is_the_kernels_thread_limit(V, ok):
+    # every CUDA kernel of the package is built for at most 512 threads a
+    # block (a thread per lane per worker): wider lanes are refused before
+    # any launch, on every device
+    rng = np.random.default_rng(16)
+    q = random_codes(rng, 8)
+    qp = build_query_profile(q, "BLOSUM62", m_multiple=8)
+    blocks, tiles, outrow = ragged_case(rng, [32], V=V)
+    codes = torch.from_numpy(tiles.reshape(1, 32, V))
+    if ok:
+        got = port_scores(tiles, outrow, 1, qp, 10, 2)
+        assert np.array_equal(
+            got, scorer.score_chunk(codes, torch.from_numpy(qp), 10,
+                                    2).numpy())
+        exp = reference.sw_score_many(q, [blocks[0][:, v] for v in (0, V - 1)],
+                                      get_matrix("BLOSUM62"), 10, 2)
+        assert np.array_equal(got[0, [0, V - 1]], exp)
+        return
+    with pytest.raises(ValueError, match="lane width"):
+        port_scores(tiles, outrow, 1, qp, 10, 2)
+    with pytest.raises(ValueError, match="lane width"):
+        scorer.score_chunk(codes, torch.from_numpy(qp), 10, 2)
+    with pytest.raises(ValueError, match="lane width"):
+        scorer.score_tiles_packed(
+            torch.from_numpy(tiles), torch.from_numpy(outrow), 1,
+            torch.from_numpy(qp), torch.zeros(1, dtype=torch.int32), 10, 2)
+
+
 def test_row_starts():
     outrow = torch.tensor([0, 0, 1, 3, 3, 3], dtype=torch.int32)
     assert scorer.row_starts(outrow, 4).tolist() == [0, 2, 3, 3, 6]
