@@ -13,7 +13,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      strain its cooperating workers, each with and without a ceiling:
      one-tile blocks, m = 8, 32, 40, 72, 120, 136, 448, 2048, 64, 256 and
      512 lanes, flat and free gaps; more than 512 lanes are refused before
-     any launch); the packed kernel on packs with a planted homolog in the
+     any launch; for sw_ragged_qtile_kernel, on the carry form of its walk,
+     tile_m = 8 to 1024 (1 to 32 strips, tail strips, three and four
+     workers), one-tile blocks, 64 to 512 lanes, gaps 10/2, 5/0, 0/3, 0/0,
+     random carries in with lanes whose score is their incoming F alone,
+     scores and both carries out, and three chained tiles against one pass);
+     the packed kernel on packs with a planted homolog in the
      query just above another, a one-group query, a pack filled to its
      bucket, a pack with a large unused tail, gap_extend=0 and gap_open=0,
      and on packs cut to M = 8, 40, 72 and 160 rows (one strip, an 8-row
@@ -141,6 +146,87 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
+def random_carries(rng, tiles, row_start, big_lanes=range(2, 512, 5),
+                   big=20_000):
+    """Random incoming carries for a query tile (H 0..59, F -80..39), and
+    at each block's last position an F of big + block + lane in the lanes
+    big_lanes: above every H a tile of up to 1024 rows could make there
+    (BLOSUM62 scores at most 11 a row), so that those lanes' per-tile score
+    is that F alone. Returns (hcar, fcar, mask of the planted lanes per
+    (block, lane), their expected scores)."""
+    n_rows = row_start.shape[0] - 1
+    V = tiles.shape[2]
+    hc = torch.from_numpy(rng.integers(0, 60, tiles.shape, dtype=np.int32))
+    fc = torch.from_numpy(rng.integers(-80, 40, tiles.shape, dtype=np.int32))
+    lanes = torch.tensor([v for v in big_lanes if v < V])
+    last = row_start[1:].cpu() - 1
+    want = (big + torch.arange(n_rows)[:, None] + lanes[None, :]).int()
+    fc[last[:, None], -1, lanes[None, :]] = want
+    mask = torch.zeros((n_rows, V), dtype=torch.bool)
+    mask[:, lanes] = True
+    dev = tiles.device
+    return (hc.to(dev), fc.to(dev), mask.to(dev),
+            want.to(dev).reshape(-1))
+
+
+def compare_qtile_carry_form(rng, errs: dict) -> None:
+    """sw_ragged_qtile_kernel (the carry form of the hg walk) against
+    score_qtile_ref, scores and both outgoing carries: tile_m = 8, 32, 40,
+    64, 72, 104 and 1024 (1, 1, 2, 2, 3, 4 and 32 strips: one worker, 8-row
+    tail strips, odd strip counts, every worker slot filled), blocks of one
+    tile beside long ones, 64 to 512 lanes, gaps 10/2, 5/0, 0/3 and 0/0,
+    random carries in with lanes whose score is their incoming F alone;
+    then three chained tiles against one pass over their rows."""
+    from swimm_tpu_torch.ops import longquery, scorer
+    k2 = "sw_ragged_qtile_kernel"
+    for counts, V, tile_m, go, ge in (
+            ([1, 5, 1, 3], 128, 8, 10, 2), ([1, 4, 2], 128, 32, 5, 0),
+            ([2, 1, 6], 128, 40, 0, 3), ([1, 3, 1], 64, 64, 0, 0),
+            ([3, 1, 7], 128, 72, 10, 2), ([1, 2, 5], 256, 104, 5, 0),
+            ([1, 6, 2], 128, 1024, 10, 2), ([2, 1, 3], 512, 72, 0, 3),
+            ([1, 3], 64, 1024, 5, 0), ([1, 2], 256, 1024, 0, 0),
+            ([1, 1, 1], 128, 104, 0, 3), ([4, 1], 128, 1024, 0, 3)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
+        rs = scorer.row_starts(outrow, n_rows)
+        hc, fc, mask, want = random_carries(rng, tiles, rs)
+        qp = profile(rng, tile_m)
+        ref = longquery.score_qtile_ref(tiles, outrow, n_rows, qp, go, ge,
+                                        hc, fc)
+        got = longquery.score_qtile(tiles, outrow, n_rows, qp, go, ge,
+                                    hc.clone(), fc.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(ref[0][mask], want):
+            raise AssertionError(f"{k2} tile_m={tile_m}: the planted F does "
+                                 "not give its lanes' scores")
+        e = max(max_err(g, r) for g, r in zip(got, ref))
+        errs[k2] = max(errs[k2], e)
+        note(f"{k2} carry form V={V} tile_m={tile_m} gaps={go}/{ge} blocks "
+             f"{counts}, random carries in (planted F in {int(mask.sum())} "
+             f"lanes), scores + carries out: max_abs_err={e}")
+    for counts, V, tile_m, go, ge in (([1, 4, 2], 128, 40, 10, 2),
+                                      ([2, 5, 1], 128, 104, 0, 3),
+                                      ([1, 3], 256, 72, 5, 0),
+                                      ([1, 2], 128, 512, 0, 0)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
+        rs = scorer.row_starts(outrow, n_rows)
+        hc, fc, _, _ = random_carries(rng, tiles, rs)
+        qp = profile(rng, 3 * tile_m)
+        ref = longquery.score_qtile_ref(tiles, outrow, n_rows, qp, go, ge,
+                                        hc, fc)
+        best, h, f = None, hc.clone(), fc.clone()
+        for qt in range(3):
+            out, h, f = longquery.score_qtile(
+                tiles, outrow, n_rows,
+                qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), go, ge, h,
+                f)
+            best = out if best is None else torch.maximum(best, out)
+        torch.cuda.synchronize()
+        e = max(max_err(g, r) for g, r in zip((best, h, f), ref))
+        errs[k2] = max(errs[k2], e)
+        note(f"{k2} three chained tiles of {tile_m} rows V={V} gaps={go}/{ge}"
+             f" vs one pass of {3 * tile_m}: max_abs_err={e}")
+
+
 def compare_kernels(errs: dict) -> None:
     """Phase 2: both kernels vs their plain versions, on the card."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -218,6 +304,7 @@ def compare_kernels(errs: dict) -> None:
     errs[k2] = max(errs[k2], e)
     note(f"{k2} one tile, random carries in, scores + carries out: "
          f"max_abs_err={e}")
+    compare_qtile_carry_form(rng, errs)
 
 
 def chunk_case(rng, B, L, V):

@@ -6,7 +6,7 @@ module: the packed-DB format, the whole-DB resident search path (one launch
 per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
 the per-chunk scoring API ``score_db`` and their five hand-written kernels
 (csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
-csrc/sw_walk_hg.cuh and, for the query-tile kernels, csrc/sw_walk.cuh),
+csrc/sw_walk_hg.cuh and, for sw_chunk_qtile_kernel, csrc/sw_walk.cuh),
 bit-exact with ``swimm_tpu``. Imports torch and numpy only. Entry points run
 on 'cuda' unless given device='cpu'.
 

@@ -117,7 +117,8 @@ int launch_chunks(const void* codes0, const void* desc, const void* block_map,
   int threads;
   size_t shared;
   const cudaError_t err =
-      hg_launch_shape(sw_chunk_kernel<CEIL>, V, m, &threads, &shared);
+      hg_launch_shape(sw_chunk_kernel<CEIL>, V, m, HG_MAX_WORKERS,
+                      &threads, &shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   sw_chunk_kernel<CEIL><<<n_blocks, threads, shared,
                           static_cast<cudaStream_t>(stream)>>>(

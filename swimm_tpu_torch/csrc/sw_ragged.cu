@@ -3,7 +3,7 @@
 // Layout, recurrence, strip-mining and the bound on the card are described
 // in sw_walk.cuh; what bounded the first design on the card, and the walk
 // with cooperating workers that answers it, in sw_walk_hg.cuh. Three
-// kernels:
+// kernels, all on that walk:
 //
 //   sw_ragged_kernel        replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_ragged_kernel (via score_tiles): a query of
@@ -14,7 +14,8 @@
 //                           _dp_ragged_tile_kernel (via _score_tiles_one_qtile):
 //                           one query tile of a long query, with the H/F
 //                           boundary rows carried in and out through device
-//                           memory, on the walk of sw_walk.cuh.
+//                           memory, in place, on the carry form of the walk
+//                           of sw_walk_hg.cuh (four workers to a block).
 //   sw_ragged_packed_kernel replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_packed_kernel (via score_tiles_packed): a
 //                           PACKED multi-query profile, one score plane per
@@ -28,7 +29,9 @@
 // wrapper) — the TPU kernel's scalar-prefetched outrow map is not needed.
 //
 // Long queries. sw_ragged_qtile_kernel reads the carries at the tile's
-// first strip and writes them at its last. Unlike the TPU kernel, which
+// first strip and writes them at its last, and its workers hand the
+// boundary between rounds on through the same two streams (sw_walk_hg.cuh,
+// the carry form): it needs no strip scratch. Unlike the TPU kernel, which
 // carries a global-ramp column cummax ("gcar"), this port carries real
 // bottom-row H and real F into the next row; the carries are internal to
 // score_tiles_long, whose contract is its output. At a block's first db
@@ -60,6 +63,11 @@
 namespace {
 
 using namespace sw;
+
+// Workers per DB block of sw_ragged_qtile_kernel: a 1024-row query tile is
+// 32 strips, which four workers share in eight full rounds (two workers:
+// 0.24% slower; sw_walk_hg.cuh).
+constexpr int QTILE_WORKERS = 4;
 
 // The DB block this CUDA block takes. The packed DB is sorted by length,
 // so rows are taken last first: the longest blocks start at once and the
@@ -102,22 +110,24 @@ sw_ragged_kernel(const int8_t* __restrict__ tiles,
   if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
 }
 
-// Kernel 2: one query tile of tile_m rows; ch/cf hold the row above the
-// tile on entry (H bottom row, F into the first row) and the tile's own
-// bottom row on exit (updated in place).
-__global__ void sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
-                                       const int64_t* __restrict__ row_start,
-                                       int V, int jt,
-                                       const int* __restrict__ qp, int m,
-                                       int goe, int ge, int* ch, int* cf,
-                                       int* __restrict__ out) {
+// Kernel 2: one query tile of m rows; ch/cf hold the row above the tile on
+// entry (real H of its bottom row, the F entering its first row) and the
+// tile's own bottom row on exit, updated in place. They may alias each
+// other's reads and writes inside the walk, so neither is __restrict__.
+// At most QTILE_WORKERS workers; the thread limit as kernel 1.
+__global__ void __launch_bounds__(HG_MAX_THREADS, 1)
+sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
+                       const int64_t* __restrict__ row_start, int V, int jt,
+                       const int* __restrict__ qp, int m, int goe, int ge,
+                       int* ch, int* cf, int* __restrict__ out) {
+  extern __shared__ int smem[];
+  int npos;
   const int row = block_row();
-  const int64_t t0 = row_start[row];
-  const int64_t npos = (row_start[row + 1] - t0) * jt;
-  const int64_t base = t0 * jt * V + threadIdx.x;
-  const int smax = walk_block(tiles + base, npos, V, qp, m, goe, ge,
-                              ch + base, cf + base);
-  out[(int64_t)row * V + threadIdx.x] = smax;
+  const int64_t base = block_span(row_start, row, jt, V, &npos);
+  const int smax = hg_walk_block<false, false>(
+      tiles + base, npos, V, qp, m, goe, ge, 0, HRows{ch + base, cf + base},
+      smem, PackedPlanes{});
+  if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
 }
 
 // Kernel 3: packed multi-query profile of m rows (m % 8 == 0; packs are
@@ -147,7 +157,8 @@ int launch_ragged(const void* tiles, const void* row_start, int n_rows, int V,
   int threads;
   size_t shared;
   const cudaError_t err =
-      hg_launch_shape(sw_ragged_kernel<CEIL>, V, m, &threads, &shared);
+      hg_launch_shape(sw_ragged_kernel<CEIL>, V, m, HG_MAX_WORKERS,
+                      &threads, &shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   sw_ragged_kernel<CEIL><<<n_rows, threads, shared,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -178,14 +189,18 @@ extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,
                                       const void* qp, int m, int goe, int ge,
                                       void* ch, void* cf, void* out,
                                       void* stream) {
-  if (n_rows > 0) {
-    sw_ragged_qtile_kernel<<<n_rows, V, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(tiles),
-        static_cast<const int64_t*>(row_start), V, jt,
-        static_cast<const int*>(qp), m, goe, ge, static_cast<int*>(ch),
-        static_cast<int*>(cf), static_cast<int*>(out));
-  }
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  int threads;
+  size_t shared;
+  const cudaError_t err = hg_launch_shape(sw_ragged_qtile_kernel, V, m,
+                                          QTILE_WORKERS, &threads, &shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw_ragged_qtile_kernel<<<n_rows, threads, shared,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, goe, ge, static_cast<int*>(ch),
+      static_cast<int*>(cf), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,7 +214,8 @@ extern "C" int sw_ragged_packed_launch(const void* tiles,
   int threads;
   size_t shared;
   const cudaError_t err =
-      hg_launch_shape(sw_ragged_packed_kernel, V, m, &threads, &shared);
+      hg_launch_shape(sw_ragged_packed_kernel, V, m, HG_MAX_WORKERS,
+                      &threads, &shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   sw_ragged_packed_kernel<<<n_rows, threads, shared,
                             static_cast<cudaStream_t>(stream)>>>(

@@ -1,9 +1,8 @@
-// Strip walk of the two query-tile kernels among the package's five
-// Smith-Waterman / Gotoh kernels: sw_ragged_qtile_kernel (sw_ragged.cu, over
-// the whole-DB tile stream) and sw_chunk_qtile_kernel (sw_chunk.cu, over
-// rectangular chunks), whose interface is the carries in and out. The three
-// kernels that take a whole profile have the walk of sw_walk_hg.cuh, which
-// shares this file's layout, recurrence and constants.
+// Strip walk of sw_chunk_qtile_kernel (sw_chunk.cu: one query tile of a
+// long query over rectangular chunks, whose interface is the carries in and
+// out), one of the package's five Smith-Waterman / Gotoh kernels. The other
+// four, sw_ragged_qtile_kernel among them, have the walk of sw_walk_hg.cuh,
+// which shares this file's layout, recurrence and constants.
 //
 // Layout. A block of the database is one contiguous (npos, V) int8 array:
 // npos db positions of V lanes (sequences). One CUDA block per DB block,

@@ -1,11 +1,13 @@
-// The walk of the three kernels that score a profile of at most 2048 rows
-// with no carries in or out: sw_ragged_kernel and sw_ragged_packed_kernel
-// (sw_ragged.cu; they replace swimm_tpu/ops/pallas_scorer.py
-// _dp_ragged_kernel via score_tiles and _dp_packed_kernel via
-// score_tiles_packed) and sw_chunk_kernel (sw_chunk.cu; _dp_kernel via
-// score_chunk). It is the recurrence of sw_walk.cuh, rewritten for what
-// bounds it on an H100 and worked by cooperating workers per DB block. The
-// two query-tile kernels keep the walk of sw_walk.cuh.
+// The walk of the four kernels that score a profile on cooperating workers
+// per DB block: sw_ragged_kernel and sw_ragged_packed_kernel (sw_ragged.cu;
+// they replace swimm_tpu/ops/pallas_scorer.py _dp_ragged_kernel via
+// score_tiles and _dp_packed_kernel via score_tiles_packed),
+// sw_ragged_qtile_kernel (sw_ragged.cu; swimm_tpu/ops/longquery.py
+// _dp_ragged_tile_kernel via _score_tiles_one_qtile, in the carry form
+// below) and sw_chunk_kernel (sw_chunk.cu; _dp_kernel via score_chunk). It
+// is the recurrence of sw_walk.cuh, rewritten for what bounds it on an
+// H100. The chunk query-tile kernel, sw_chunk_qtile_kernel, keeps the walk
+// of sw_walk.cuh.
 //
 // What bounds it. Measured on an NVIDIA H100 80GB HBM3 at 700 W: VIADDMNMX
 // and VIMNMX3 start at 62 thread-instructions per clock per SM, half of
@@ -77,6 +79,42 @@
 // With S == 1 a strip is one step of npos positions and nothing
 // synchronises but the staging of the profile.
 //
+// The carry form (a Carry of type HRows: sw_ragged_qtile_kernel) walks one
+// query tile of a longer query, whose interface is the row above the tile
+// and the tile's own bottom row, as real H and the F entering the next row
+// in two int32 streams (ch, cf) laid out like the codes, updated in place.
+// Every boundary it keeps in device memory is that pair of streams: the
+// first strip reads the row above the tile from them, the last strip
+// (whichever worker holds it) writes the tile's bottom row into them, and
+// the last worker of a round hands its bottom row to worker 0 of the next
+// round through them too, so the walk needs no scratch. The ring holds the
+// same real-H form (hg + goe stored, H - goe loaded: one addition each per
+// db position and strip), so one code path serves both kinds of boundary.
+// The in-place hand-off is safe under the lock step: worker 0 reads chunk c
+// of a round at step round * P + c, the last worker writes it at round * P
+// + c + S - 1, the next round reads it at (round + 1) * P + c >= round * P
+// + c + S (P >= S), and a barrier ends every step; where one thread both
+// reads and writes a position (S == 1, or worker 0 holding the last
+// strip), its load runs HG_AHEAD positions ahead of the store. As the two
+// pointers may alias, neither is __restrict__; the codes are addressed
+// from the kernel's const __restrict__ parameter. The carries come out
+// exact: H = hg + goe = max(t0, F), and F below = max(t0 - goe, F - ge) =
+// max(H - goe, F - ge) for gap_open >= 0. The per-tile maximum is not the
+// maximum of t0 there: F also enters from the carry, an H that comes from
+// it is an H of this tile's rows, and it need not lie below any t0 of the
+// tile. So the carry form keeps the maximum of hg = H - goe itself, one
+// VIMNMX3 per two rows as before, and adds goe at the end.
+//
+// The carry form also reads each code byte unsigned. Read as int8_t (from
+// the const __restrict__ parameter), the byte comes in by LDG.E.U8.CONSTANT
+// and ptxas places the PRMT that sign-extends it a few instructions after
+// the load, so every position waits out the load's latency and the loads
+// ahead gain nothing; read as uint8_t the load itself widens it, and the
+// code's low five bits, all the walk uses, are the same. Kernels 1 and 3
+// still read it signed and wait (PERF.md §6: ~11% of their time);
+// kernel 4, whose codes address is re-based from a table, gets a plain
+// LDG.E.S8, which needs no PRMT.
+//
 // S, D and the rest, by measurement on that card (whole-DB stream of
 // 50,873 tiles, m = 448; the walk of sw_walk.cuh: 51.8 ms): S = 1 40.4 ms,
 // S = 2 35.6, S = 4 41.5 (14 strips leave two of 16 worker slots idle, and
@@ -85,11 +123,18 @@
 // change to the recurrence), 35.6, 37.9 (registers); 16-row strips (64
 // registers, twice the warps) 41.9 with S = 4 and 77.7 with S = 1, where
 // the doubled carry traffic does bind. 120-128 registers under
-// __launch_bounds__(512, 1): two blocks of 256 threads per SM.
+// __launch_bounds__(512, 1): two blocks of 256 threads per SM. The carry
+// form (a 1024-row tile, 32 strips, over the whole-DB stream; the walk of
+// sw_walk.cuh: 88.7 ms; tools/walk_variants.py): code bytes signed 84.4 ms
+// at S = 2, 85.1 at S = 4; unsigned 75.4 at S = 2, 75.2 at S = 4 (eight
+// full rounds), so four workers; the incoming F folded into a maximum of
+// t0 in place of the maximum of hg 75.4 (one VIMNMX more per position and
+// strip); 123 registers.
 
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "sw_walk.cuh"
 
@@ -97,7 +142,8 @@ namespace sw {
 
 constexpr int HG_STEP = 32;         // D: db positions per lock step (S > 1)
 constexpr int HG_AHEAD = 2;         // positions the loads run ahead
-constexpr int HG_MAX_WORKERS = 2;   // S at most
+constexpr int HG_MAX_WORKERS = 2;   // S at most (sw_ragged_qtile_kernel:
+                                    // QTILE_WORKERS)
 constexpr int HG_MAX_THREADS = 512; // S * V at most, so V at most
 constexpr int SEG_ROWS = 8;         // rows per segment group of a packed
                                     // multi-query profile
@@ -110,9 +156,43 @@ struct PackedPlanes {
   int* planes;               // the DB block's plane 0 (plane stride V)
 };
 
+// A strip boundary row in the carry form: real H and the F entering the
+// next row, two int32 streams of stride V (the query tile's carries in
+// device memory, or a ring slot in shared memory).
+struct HRows {
+  int* h;
+  int* f;
+};
+
+// Loads and stores of a boundary row in either form: an (hg, F) int2 pair
+// (null: no row there), or HRows (always there). load_row returns the row
+// as stored; above_hg turns its first value into the registers' hg.
+__device__ __forceinline__ bool present(const int2* p) { return p != nullptr; }
+__device__ __forceinline__ bool present(const HRows&) { return true; }
+__device__ __forceinline__ int2 load_row(const int2* p, int64_t a) {
+  return p[a];
+}
+__device__ __forceinline__ int2 load_row(const HRows& p, int64_t a) {
+  return make_int2(p.h[a], p.f[a]);
+}
+__device__ __forceinline__ int above_hg(const int2*, int x, int) { return x; }
+__device__ __forceinline__ int above_hg(const HRows&, int x, int goe) {
+  return x - goe;
+}
+__device__ __forceinline__ void store_row(int2* p, int64_t a, int hg, int f,
+                                          int) {
+  p[a] = make_int2(hg, f);
+}
+__device__ __forceinline__ void store_row(const HRows& p, int64_t a, int hg,
+                                          int f, int goe) {
+  p.h[a] = hg + goe;
+  p.f[a] = f;
+}
+
 // Shared memory of a block of `workers` workers of V lanes, in ints: one
 // staged profile strip per worker, then two ring slots of HG_STEP x V
-// (hg, F) pairs per boundary between neighbouring workers (at least room
+// (hg, F) pairs per boundary between neighbouring workers (in the carry
+// form a slot is HG_STEP x V values of H, then as many of F; at least room
 // for the final reduction of the workers' maxima).
 __host__ __device__ inline size_t hg_shared_ints(int workers, int V) {
   const size_t ring = (size_t)(workers - 1) * 2 * HG_STEP * V * 2;
@@ -131,23 +211,29 @@ __device__ __forceinline__ void worker_sync(int k, int V, int workers) {
 }
 
 // One step of a strip of R rows for one lane: n db positions from `codes`
-// (stride V). top/bot point at this lane's first (hg, F) pair of the row
-// above / of this strip's bottom row (stride V; shared or device memory),
-// or are null: no row above (H = 0, F = NEG), nothing below. hg/e/diag_top
-// carry the strip's state from step to step. gm holds the running maximum:
-// one for the lane (G == 1), or one per 8-row group of the strip in the
-// packed form (G == STRIP_GROUPS), where cap holds the groups' caps on F.
-// As in sw_walk.cuh the loads of a position's code and top pair are started
+// (stride V). top/bot point at this lane's first entry of the row above /
+// of this strip's bottom row (stride V; shared or device memory): (hg, F)
+// int2 pairs, or null: no row above (H = 0, F = NEG), nothing below; or,
+// in the carry form, HRows. hg/e/diag_top carry the strip's state from
+// step to step. gm holds the running maximum: one for the lane (G == 1),
+// or one per 8-row group of the strip in the packed form (G ==
+// STRIP_GROUPS), where cap holds the groups' caps on F. It is a maximum of
+// t0, or of hg in the carry form (see the top of this file). As in
+// sw_walk.cuh the loads of a position's code and top row are started
 // ahead of its turn, here HG_AHEAD positions.
-template <int R, bool CEIL, int G>
+template <int R, bool CEIL, int G, class Top, class Bot>
 __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
                                         int& diag_top, int (&gm)[G],
                                         const int (&cap)[G],
                                         const int8_t* __restrict__ codes,
                                         int n, int V,
                                         const int* __restrict__ prof,
-                                        const int2* top, int2* bot, int goe,
+                                        const Top top, const Bot bot, int goe,
                                         int nge, int ceiling) {
+  constexpr bool carry_form = std::is_same<Top, HRows>::value;
+  // the carry form reads the code bytes unsigned (see the top of this file)
+  using Code = std::conditional_t<carry_form, uint8_t, int8_t>;
+  const Code* __restrict__ cb = reinterpret_cast<const Code*>(codes);
   int code_q[HG_AHEAD];
   int2 top_q[HG_AHEAD];
 #pragma unroll
@@ -155,14 +241,14 @@ __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
     code_q[a] = 0;
     top_q[a] = make_int2(-goe, NEG);
     if (a < n) {
-      code_q[a] = codes[(int64_t)a * V];
-      if (top) top_q[a] = top[(int64_t)a * V];
+      code_q[a] = cb[(int64_t)a * V];
+      if (present(top)) top_q[a] = load_row(top, (int64_t)a * V);
     }
   }
   for (int j = 0; j < n; ++j) {
     const int code = code_q[0] & (TABLE_CODES - 1);
     int diag = diag_top;
-    diag_top = top_q[0].x;
+    diag_top = above_hg(top, top_q[0].x, goe);
     int f = top_q[0].y;
 #pragma unroll
     for (int a = 0; a + 1 < HG_AHEAD; ++a) {
@@ -170,8 +256,9 @@ __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
       top_q[a] = top_q[a + 1];
     }
     if (j + HG_AHEAD < n) {
-      code_q[HG_AHEAD - 1] = codes[(int64_t)(j + HG_AHEAD) * V];
-      if (top) top_q[HG_AHEAD - 1] = top[(int64_t)(j + HG_AHEAD) * V];
+      code_q[HG_AHEAD - 1] = cb[(int64_t)(j + HG_AHEAD) * V];
+      if (present(top))
+        top_q[HG_AHEAD - 1] = load_row(top, (int64_t)(j + HG_AHEAD) * V);
     }
     const int* __restrict__ col = prof + code;
     int tprev = 0;
@@ -183,18 +270,27 @@ __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
       const int en = __viaddmax_s32(e[r], nge, hg[r]);
       int t0 = __viaddmax_s32_relu(diag, col[r * TABLE_CODES], en);
       if (CEIL) t0 = min(t0, ceiling);
-      if (r & 1) {
-        gm[g] = __vimax3_s32(gm[g], tprev, t0);
-      } else {
-        tprev = t0;
+      if (!carry_form) {
+        if (r & 1) {
+          gm[g] = __vimax3_s32(gm[g], tprev, t0);
+        } else {
+          tprev = t0;
+        }
       }
       const int t0g = t0 - goe;
       diag = hg[r];
       hg[r] = __viaddmax_s32(f, -goe, t0g);
       e[r] = en;
       f = __viaddmax_s32(f, nge, t0g);
+      if (carry_form) {
+        if (r & 1) {
+          gm[g] = __vimax3_s32(gm[g], tprev, hg[r]);
+        } else {
+          tprev = hg[r];
+        }
+      }
     }
-    if (bot) bot[(int64_t)j * V] = make_int2(hg[R - 1], f);
+    if (present(bot)) store_row(bot, (int64_t)j * V, hg[R - 1], f, goe);
   }
 }
 
@@ -225,16 +321,23 @@ __device__ __forceinline__ void fold_groups(const PackedPlanes& pk, int V,
 
 // Walk every strip of an m-row profile over one DB block of npos positions
 // with blockDim.x / V workers. codes points at the block's first position,
-// carry at its first (hg, F) pair in the device-memory carry stream (used
-// when there are more strips than workers), smem at hg_shared_ints() ints.
-// Returns the lane's maximum H in the threads of worker 0; in the packed
-// form the maxima go to pk's planes (this thread's lane of them) and
-// nothing is returned.
-template <bool CEIL, bool PACKED>
+// smem at hg_shared_ints() ints. carry points at the block's first position
+// of the device-memory boundary rows: an (hg, F) int2 scratch stream, used
+// when there are more strips than workers; or, in the carry form, the
+// query tile's carries (HRows: the row above the tile on entry, its bottom
+// row on exit). Returns the lane's maximum H (over the tile's rows, in the
+// carry form) in the threads of worker 0; in the packed form the maxima go
+// to pk's planes (this thread's lane of them) and nothing is returned.
+template <bool CEIL, bool PACKED, class Carry>
 __device__ __forceinline__ int hg_walk_block(
     const int8_t* __restrict__ codes, int npos, int V,
     const int* __restrict__ qp, int m, int goe, int ge, int ceiling,
-    int2* carry, int* smem, const PackedPlanes pk) {
+    const Carry carry, int* smem, const PackedPlanes pk) {
+  constexpr bool CARRY = std::is_same<Carry, HRows>::value;
+  static_assert(CARRY || std::is_same<Carry, int2*>::value,
+                "carry is an int2 scratch stream or HRows");
+  static_assert(!(CARRY && (PACKED || CEIL)),
+                "the carry form has no packed profile and no ceiling");
   constexpr int G = PACKED ? STRIP_GROUPS : 1;
   const int S = blockDim.x / V;
   const int k = threadIdx.x / V;
@@ -253,7 +356,7 @@ __device__ __forceinline__ int hg_walk_block(
   int hg[STRIP], e[STRIP], gm[G], cap[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    gm[g] = 0;
+    gm[g] = CARRY ? -goe : 0;   // H = 0, in the form the maximum is kept
     cap[g] = 0;
   }
   int diag_top = -goe;
@@ -296,19 +399,42 @@ __device__ __forceinline__ int hg_walk_block(
       const int p0 = c * D;
       const int n = npos - p0 < D ? npos - p0 : D;
       const int64_t off = (int64_t)p0 * V + v;
-      const int2* top = nullptr;
-      if (s > 0)
-        top = k > 0 ? ring + ((k - 1) * 2 + ((t - 1) & 1)) * slot + v
-                    : carry + off;
-      int2* bot = nullptr;
-      if (s < n_strips - 1)
-        bot = k < S - 1 ? ring + (k * 2 + (t & 1)) * slot + v : carry + off;
-      if (rows == STRIP) {
-        hg_step<STRIP, CEIL>(hg, e, diag_top, gm, cap, codes + off, n, V,
-                             prof, top, bot, goe, -ge, ceiling);
+      if constexpr (CARRY) {
+        // worker 0 reads the carries, the last worker and the holder of
+        // the last strip write them; the ring holds real H as they do
+        int* const ri = reinterpret_cast<int*>(ring) + v;
+        const HRows dev{carry.h + off, carry.f + off};
+        HRows top = dev, bot = dev;
+        if (k > 0) {
+          top.h = ri + ((k - 1) * 2 + ((t - 1) & 1)) * 2 * slot;
+          top.f = top.h + slot;
+        }
+        if (k < S - 1 && s < n_strips - 1) {
+          bot.h = ri + (k * 2 + (t & 1)) * 2 * slot;
+          bot.f = bot.h + slot;
+        }
+        if (rows == STRIP) {
+          hg_step<STRIP, CEIL>(hg, e, diag_top, gm, cap, codes + off, n, V,
+                               prof, top, bot, goe, -ge, ceiling);
+        } else {
+          hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, gm, cap, codes + off,
+                                    n, V, prof, top, bot, goe, -ge, ceiling);
+        }
       } else {
-        hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, gm, cap, codes + off, n,
-                                  V, prof, top, bot, goe, -ge, ceiling);
+        const int2* top = nullptr;
+        if (s > 0)
+          top = k > 0 ? ring + ((k - 1) * 2 + ((t - 1) & 1)) * slot + v
+                      : carry + off;
+        int2* bot = nullptr;
+        if (s < n_strips - 1)
+          bot = k < S - 1 ? ring + (k * 2 + (t & 1)) * slot + v : carry + off;
+        if (rows == STRIP) {
+          hg_step<STRIP, CEIL>(hg, e, diag_top, gm, cap, codes + off, n, V,
+                               prof, top, bot, goe, -ge, ceiling);
+        } else {
+          hg_step<STRIP_TAIL, CEIL>(hg, e, diag_top, gm, cap, codes + off,
+                                    n, V, prof, top, bot, goe, -ge, ceiling);
+        }
       }
       if constexpr (PACKED) {
         if (c == nc - 1)                     // the strip is done
@@ -317,7 +443,7 @@ __device__ __forceinline__ int hg_walk_block(
     }
     if (S > 1) __syncthreads();
   }
-  int smax = gm[0];
+  int smax = CARRY ? gm[0] + goe : gm[0];
   if (!PACKED && S > 1) {                    // fold the workers' maxima
     int* red = reinterpret_cast<int*>(ring);
     red[k * V + v] = smax;
@@ -330,14 +456,15 @@ __device__ __forceinline__ int hg_walk_block(
 
 // Launch shape of a kernel built on hg_walk_block for V lanes and an m-row
 // profile: threads per block and dynamic shared memory, which the kernel is
-// allowed here. Workers per DB block: as many as HG_MAX_WORKERS, the thread
-// limit and the strip count allow; workers synchronise by warps, so lanes
-// that do not fill whole warps get one.
+// allowed here. Workers per DB block: as many as max_workers (a constant
+// of the kernel), the thread limit and the strip count allow; workers
+// synchronise by warps, so lanes that do not fill whole warps get one.
 template <class Kernel>
-inline cudaError_t hg_launch_shape(Kernel kernel, int V, int m, int* threads,
+inline cudaError_t hg_launch_shape(Kernel kernel, int V, int m,
+                                   int max_workers, int* threads,
                                    size_t* shared) {
-  int workers = HG_MAX_THREADS / V < HG_MAX_WORKERS ? HG_MAX_THREADS / V
-                                                    : HG_MAX_WORKERS;
+  int workers = HG_MAX_THREADS / V < max_workers ? HG_MAX_THREADS / V
+                                                 : max_workers;
   const int n_strips = m / STRIP + (m % STRIP) / STRIP_TAIL;
   if (workers > n_strips) workers = n_strips;
   if (workers < 1 || V % 32) workers = 1;

@@ -37,9 +37,9 @@ import torch
 NEG = -(1 << 28)   # same floor as the CUDA kernels (csrc/sw_ragged.cu)
 JT = 32            # db positions per tile (PackedDb.flat_tiles)
 MAX_LANES = 512    # lane width V at most: a CUDA block has a thread per lane
-# (per worker). Three kernels are compiled for at most 512 threads (csrc/
-# sw_walk_hg.cuh HG_MAX_THREADS), and the two query-tile kernels hold over
-# 100 registers a thread, so an SM has no room for more: on an H100 all five
+# (per worker). Four kernels are compiled for at most 512 threads (csrc/
+# sw_walk_hg.cuh HG_MAX_THREADS), and sw_chunk_qtile_kernel holds over 100
+# registers a thread, so an SM has no room for more: on an H100 all five
 # launch at V = 512 and none at V = 544. The same limit on every device, so
 # the CPU tests see the card's
 
