@@ -27,8 +27,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the chunk kernels at V = 128, 64 and 512, m = 8, 40, 2048, a ceiling,
      m = 2064 in 1024-row tiles, a small tile_m, one query-tile launch with
      random carries, and the list forms of both chunk kernels on separately
-     allocated chunks of different B and L in one launch (--kernels-only
-     stops here);
+     allocated chunks of different B and L in one launch; then all five at
+     the largest gaps accepted (scorer.MAX_GAP: 2^19/2^19, 0/2^19, 2^19/0)
+     at each path's longest profile, and one past the bound refused before
+     any launch (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -57,6 +59,20 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the 100 longest blocks and on those alone, GCUPS, latencies, profiled
      20-query searches (kernel device time and the device's idle share); a
      `kernels` JSON line, then the device JSON as the last line.
+Between 7 and 8, the later paths, each after a warm-up with its own launch
+counts (the kernels line keeps counting the main paths of 3-6):
+  9. the 20 queries with evalue=True: hits equal the plain batch's; each
+     query's device histogram equals np.bincount of its kernel-1 lane
+     scores on the host, and every E-value and bit score equals the fit of
+     that host table (==);
+ 10. the 20 queries and the 5,000-aa query with precision='ladder': hits
+     equal the exact ones; the tiers' ceilings, blocks per tier and
+     launches per kernel printed;
+ 11. score_db(precision='ladder') for query 0 equal to the exact vector;
+     score_chunk_adaptive on the DB's largest chunk equal to its exact
+     scores;
+ 12. 4 queries with the ladder and evalue=True: E-values equal the fit of
+     the exact score_db vectors.
 
 Imports nothing of JAX or of the swimm_tpu package.
 """
@@ -478,6 +494,58 @@ def compare_new_kernels(errs: dict) -> None:
          f"max_abs_err={e}")
 
 
+def compare_at_gap_bound(errs: dict) -> None:
+    """Phase 2, last: all five kernels against their plain versions at the
+    largest gaps the package accepts (scorer.MAX_GAP), at each path's
+    longest profile (2,048 rows in one pass, 1,024-row query tiles, a
+    1,024-row pack), and gaps one past the bound refused before a launch."""
+    from swimm_tpu_torch.models import qpack
+    from swimm_tpu_torch.ops import longquery, scorer
+    from swimm_tpu_torch.utils.synth import random_codes
+    rng = np.random.default_rng(9)
+    big = scorer.MAX_GAP
+    for go, ge in ((big, big), (0, big), (big, 0)):
+        tiles, outrow, n_rows = ragged_case(rng, [1, 3, 2])
+        qp = profile(rng, 2048)
+        e = {"sw_ragged_kernel": max_err(
+            scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge),
+            scorer.score_tiles_ref(tiles, outrow, n_rows, qp, go, ge))}
+        qp_l = profile(rng, 2064)
+        e["sw_ragged_qtile_kernel"] = max_err(
+            longquery.score_tiles_long(tiles, outrow, n_rows, qp_l, go, ge),
+            scorer.score_tiles_ref(tiles, outrow, n_rows, qp_l, go, ge))
+        pack, = qpack.build_query_packs(
+            [random_codes(rng, n) for n in (500, 300, 150)], buckets=(1024,))
+        qp3, seg3 = pack_on_card(pack)
+        e["sw_ragged_packed_kernel"] = max_err(
+            scorer.score_tiles_packed(tiles, outrow, n_rows, qp3, seg3, go,
+                                      ge),
+            scorer.score_tiles_packed_ref(tiles, outrow, n_rows, qp3, seg3,
+                                          go, ge))
+        codes = chunk_case(rng, 3, 96, 128)
+        e["sw_chunk_kernel"] = max_err(
+            scorer.score_chunk(codes, qp, go, ge),
+            scorer.score_chunk_ref(codes, qp, go, ge))
+        e["sw_chunk_qtile_kernel"] = max_err(
+            longquery.score_chunk_long(codes, qp_l, go, ge),
+            scorer.score_chunk_ref(codes, qp_l, go, ge))
+        torch.cuda.synchronize()
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        note(f"gaps {go}/{ge} (scorer.MAX_GAP = {big}): max_abs_err {e}")
+    tiles, outrow, n_rows = ragged_case(rng, [1])
+    for go, ge in ((big + 1, 0), (0, big + 1)):
+        before = scorer.score_tiles.launches
+        try:
+            scorer.score_tiles(tiles, outrow, n_rows, profile(rng, 8), go, ge)
+        except ValueError as exc:
+            note(f"gaps {go}/{ge} refused before a launch: {exc}")
+        else:
+            raise AssertionError(f"gaps {go}/{ge} must be refused")
+        if scorer.score_tiles.launches != before:
+            raise AssertionError("a refused gap must not launch")
+
+
 def longest_block_check(dev_db, qp_short, errs: dict) -> None:
     """Both kernels vs plain on the DB's longest block."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -629,6 +697,188 @@ def check_score_vector(packed, name, vec, lane_scores, result, top_k):
                              "the search's hits")
 
 
+def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
+                long_met, vec0, config, counted) -> dict:
+    """Phases 9-12, E-values and the precision ladder: each path driven
+    once after a warm-up, its launch counters set to 0 just before and read
+    just after (kept apart from the kernels line, which counts the main
+    paths of phases 3-6), its time beside the exact path's, and its results
+    held exactly against the exact path's. Returns the numbers and phase
+    times."""
+    from dataclasses import replace
+
+    from swimm_tpu_torch.models import engine
+    from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import ladder, longquery, scorer
+    from swimm_tpu_torch.utils import stats
+    out, phases = {}, {}
+
+    def qprof(q):
+        return torch.from_numpy(build_query_profile(
+            q.codes, config.matrix, config.m_multiple)).cuda()
+
+    def same_evalues(hits, model):
+        exp = [replace(h) for h in hits]
+        stats.attach_evalues(exp, model, packed.lengths)
+        return ([(h.evalue, h.bits) for h in hits]
+                == [(h.evalue, h.bits) for h in exp])
+
+    # ---- phase 9: the 20-query batch with E-values ----
+    t = time.perf_counter()
+    econfig = SearchConfig(top_k=16, evalue=True)
+    search(packed, queries, econfig)                     # warm-up
+    (e_res, e_met), seen = counted(
+        lambda: search(packed, queries, econfig), main=False)
+    if seen["sw_ragged_kernel"] != N_QUERIES or sum(seen.values()) != \
+            N_QUERIES:
+        raise AssertionError(f"E-value batch: expected {N_QUERIES} launches "
+                             f"of sw_ragged_kernel and no other, got {seen}")
+    if not same_hits(e_res, results):
+        raise AssertionError("E-value batch: hits differ from the plain "
+                             "batch's")
+    mask, lane_bins = dev_db[4], engine.device_lane_bins(packed)
+    valid = mask.cpu().numpy()
+    bins = lane_bins.cpu().numpy()[valid].astype(np.int64)
+    width = stats.SCORE_CAP + 1
+    _, bin_logl = stats.length_bins(packed.lengths)
+    for q, r in zip(queries, e_res):
+        lanes = engine.score_lanes(dev_db, qprof(q), "tiles", config)
+        table = engine.score_hist(lanes, mask, lane_bins).cpu().numpy()
+        host = np.bincount(
+            bins * width + np.clip(lanes.cpu().numpy()[valid], 0,
+                                   stats.SCORE_CAP),
+            minlength=stats.N_LEN_BINS * width).reshape(-1, width)
+        if not np.array_equal(table, host):
+            raise AssertionError(f"{q.title}: the device histogram differs "
+                                 "from np.bincount of the lane scores")
+        if not same_evalues(r.hits, stats.fit_evalue_model_hist(host,
+                                                                bin_logl)):
+            raise AssertionError(f"{q.title}: E-values differ from the fit "
+                                 "of the host table")
+    out["evalue20"] = {"seconds": e_met.seconds,
+                       "plain_seconds": met.seconds,
+                       "overhead": e_met.seconds / met.seconds - 1,
+                       "launches": seen, "profiled": device_breakdown(
+                           lambda: search(packed, queries, econfig))}
+    note(f"20-query search with E-values: {e_met.seconds:.3f} s (plain "
+         f"batch {met.seconds:.3f} s, {out['evalue20']['overhead']:+.1%}), "
+         f"launches {seen}; hits equal the plain batch's, every device "
+         "table equals np.bincount of its lane scores, every E-value and "
+         "bit score equals the fit of that table; under torch.profiler: "
+         f"{out['evalue20']['profiled']}")
+    phases["evalue20_s"] = time.perf_counter() - t
+
+    # ---- phase 10: the ladder batch (20 queries + the 5,000-aa query) ----
+    t = time.perf_counter()
+    lconfig = SearchConfig(top_k=16, precision="ladder")
+    batch = queries + [long_q]
+    search(packed, batch, lconfig)                       # warm-up
+    (l_res, l_met), seen = counted(
+        lambda: search(packed, batch, lconfig), main=False)
+    n_qt = -(-engine._m_pad(long_q.length, config.m_multiple)
+             // longquery.LONG_TILE_M)
+    if (seen["sw_ragged_kernel"] < N_QUERIES
+            or seen["sw_chunk_qtile_kernel"] != n_qt):
+        raise AssertionError(f"ladder batch: expected >= {N_QUERIES} tier "
+                             f"launches and {n_qt} long-query launches, got "
+                             f"{seen}")
+    if not same_hits(l_res, results + long_res):
+        raise AssertionError("ladder batch: hits differ from the exact "
+                             "search's")
+    # the tiers' block counts: the serving call the batch made, again
+    group_list = [(np.stack([build_query_profile(
+        queries[p].codes, config.matrix, config.m_multiple)
+        for p in positions]), [queries[p].length for p in positions])
+        for positions in engine.group_by_m_pad(
+            queries, config.m_multiple).values()]
+    t1 = time.perf_counter()
+    (_, tier_stats), tier_seen = counted(
+        lambda: ladder.topk_db_adaptive_serving(
+            packed, group_list, 16, config.gap_open, config.gap_extend,
+            dev_db=dev_db), main=False)
+    tiers_s = time.perf_counter() - t1
+    out["ladder21"] = {"seconds": l_met.seconds,
+                       "exact_seconds": met.seconds + long_met.seconds,
+                       "launches": seen, "tiers_20_seconds": tiers_s,
+                       "tiers_20_launches": tier_seen, **tier_stats,
+                       "tiers_20_profiled": device_breakdown(
+                           lambda: ladder.topk_db_adaptive_serving(
+                               packed, group_list, 16, config.gap_open,
+                               config.gap_extend, dev_db=dev_db))}
+    note(f"ladder batch (20 queries + the {LONG_LEN}-aa query): "
+         f"{l_met.seconds:.3f} s (exact: {met.seconds:.3f} + "
+         f"{long_met.seconds:.3f} s), launches {seen}; hits equal the exact "
+         f"ones. Tiers of the 20: ceilings {tier_stats['tier_ceilings']}, "
+         f"blocks per tier {tier_stats['tier_blocks']}, {tiers_s:.3f} s, "
+         f"launches {tier_seen}; under torch.profiler: "
+         f"{out['ladder21']['tiers_20_profiled']}")
+    phases["ladder21_s"] = time.perf_counter() - t
+
+    # ---- phase 11: score_db with the ladder, and score_chunk_adaptive ----
+    t = time.perf_counter()
+    score_db(packed, queries[0], lconfig)                # warm-up
+    t1 = time.perf_counter()
+    lvec, seen = counted(lambda: score_db(packed, queries[0], lconfig),
+                         main=False)
+    db_s = time.perf_counter() - t1
+    if not np.array_equal(lvec, vec0) or seen["sw_ragged_kernel"] < 1:
+        raise AssertionError(f"score_db(precision='ladder') for query 0 "
+                             f"differs from the exact vector (launches "
+                             f"{seen})")
+    chunks, _ = engine.device_chunk_table(packed)
+    big = max(chunks, key=lambda c: c.numel())
+    qp0 = qprof(queries[0])
+    (csc, cst), c_seen = counted(lambda: ladder.score_chunk_adaptive(
+        big, qp0, config.gap_open, config.gap_extend, upper_bound=(
+            ladder.max_possible_score(queries[0].length, big.shape[1]))),
+        main=False)
+    if not np.array_equal(csc, scorer.score_chunk(
+            big, qp0, config.gap_open, config.gap_extend).cpu().numpy()) \
+            or c_seen["sw_chunk_kernel"] < 1:
+        raise AssertionError("score_chunk_adaptive differs from the exact "
+                             f"chunk scores (launches {c_seen})")
+    out["score_db_ladder"] = {"query0_s": db_s, "launches": seen,
+                              "chunk_adaptive": {**cst, "shape": list(
+                                  big.shape), "launches": c_seen}}
+    note(f"score_db(precision='ladder') for query 0: {db_s:.3f} s, "
+         f"launches {seen}, equal to the exact vector; "
+         f"score_chunk_adaptive on the largest chunk {tuple(big.shape)}: "
+         f"{cst}, launches {c_seen}, equal to the exact chunk scores")
+    phases["score_db_ladder_s"] = time.perf_counter() - t
+
+    # ---- phase 12: the ladder with E-values (full-vector fits) ----
+    t = time.perf_counter()
+    leconfig = SearchConfig(top_k=16, precision="ladder", evalue=True)
+    four = queries[:4]
+    search(packed, four, leconfig)                       # warm-up
+    (le_res, le_met), seen = counted(
+        lambda: search(packed, four, leconfig), main=False)
+    if not same_hits(le_res, results[:4]) or seen["sw_ragged_kernel"] < 4:
+        raise AssertionError(f"ladder with E-values: hits differ from the "
+                             f"exact search's (launches {seen})")
+    fit_s = []
+    for q, r in zip(four, le_res):
+        svec = score_db(packed, q, config)
+        t1 = time.perf_counter()
+        model = stats.fit_evalue_model(svec, packed.lengths)
+        fit_s.append(time.perf_counter() - t1)
+        if not same_evalues(r.hits, model):
+            raise AssertionError(f"{q.title}: ladder E-values differ from "
+                                 "the fit of the exact score_db vector")
+    out["ladder_evalue4"] = {"seconds": le_met.seconds, "launches": seen,
+                             "plain_seconds_4": met.seconds * 4 / N_QUERIES,
+                             "host_fit_seconds": fit_s}
+    note(f"4 queries, ladder with E-values: {le_met.seconds:.3f} s "
+         f"(plain batch: {met.seconds * 4 / N_QUERIES:.3f} s for 4), "
+         f"launches {seen}; E-values equal the fit of the exact score_db "
+         f"vectors; that fit alone takes {sum(fit_s) / len(fit_s):.3f} s a "
+         "query on the host")
+    phases["ladder_evalue4_s"] = time.perf_counter() - t
+    out["phases_s"] = phases
+    return out
+
+
 def main(argv=None) -> int:
     kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
                                         else argv)
@@ -661,16 +911,18 @@ def main(argv=None) -> int:
                 "sw_chunk_qtile_kernel": longquery.score_chunks_qtile}
     launches = dict.fromkeys(counters, 0)
 
-    def counted(fn):
+    def counted(fn, main=True):
         """fn() with every launch counter set to 0 just before and read
-        just after; adds the counts to `launches` and returns (result,
-        this run's counts)."""
+        just after; returns (result, this run's counts) and, for the main
+        paths of phases 3-6 (main=True), adds the counts to `launches`,
+        which the kernels line reports."""
         for w in counters.values():
             w.launches = 0
         res = fn()
         seen = {name: w.launches for name, w in counters.items()}
-        for name, n in seen.items():
-            launches[name] += n
+        if main:
+            for name, n in seen.items():
+                launches[name] += n
         return res, seen
 
     # ---- phase 2: build + kernels vs plain ----
@@ -685,6 +937,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     compare_kernels(errs)
     compare_new_kernels(errs)
+    compare_at_gap_bound(errs)
     phases["compare_s"] = time.perf_counter() - t
     if kernels_only:
         note(f"kernels only: max_abs_err per kernel {errs}")
@@ -840,6 +1093,11 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+
+    # ---- phases 9-12: E-values and the precision ladder ----
+    later = later_paths(packed, dev_db, queries, results, long_q, long_res,
+                        met, long_met, vec, config, counted)
+    phases.update(later.pop("phases_s"))
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
     int_rate = instruction_rate()
@@ -1040,6 +1298,7 @@ def main(argv=None) -> int:
         "score_db": {"query0_s": db_short_s, "long5000_s": db_long_s,
                      "chunks": n_chunks},
         "kernel1_tail": k1_tail,
+        "evalue_and_ladder": later,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

@@ -4,15 +4,18 @@ PyTorch and CUDA (NVIDIA Hopper).
 The PyTorch/CUDA counterpart of the ``swimm_tpu`` package, module for
 module: the packed-DB format, the whole-DB resident search path (one launch
 per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
-the per-chunk scoring API ``score_db`` and their five hand-written kernels
+the per-chunk scoring API ``score_db``, E-value statistics
+(``SearchConfig(evalue=True)``), the adaptive-precision ladder
+(``SearchConfig(precision='ladder')``) and their five hand-written kernels
 (csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
 csrc/sw_walk_hg.cuh and, for sw_chunk_qtile_kernel, csrc/sw_walk.cuh),
 bit-exact with ``swimm_tpu``. Imports torch and numpy only. Entry points run
 on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
-  models.engine      SearchConfig, search (resident DB, device top-k),
-                     score_db (every lane's score, all chunks per launch)
+  models.engine      SearchConfig, search (resident DB, device top-k,
+                     device score histograms), score_db (every lane's
+                     score, all chunks per launch)
   models.qpack       build_query_packs (many queries in one profile)
   ops.scorer         score_tiles        -> sw_ragged_kernel
                      score_tiles_packed -> sw_ragged_packed_kernel
@@ -23,6 +26,8 @@ on 'cuda' unless given device='cpu'.
                      score_chunks_long  -> sw_chunk_qtile_kernel (a list of
                                            chunks per launch; score_chunk_long
                                            is its one-chunk case)
+  ops.ladder         the precision ladder on the kernels' ceiling variants
+  utils.stats        the E-value fit (a copy of swimm_tpu.utils.stats)
   db / fasta / ...   packed DB format v1, FASTA, matrices, alphabet
 """
 

@@ -4,7 +4,8 @@ synth, preprocess and search subcommands).
     python -m swimm_tpu_torch synth -o db.fasta -n 10000
     python -m swimm_tpu_torch preprocess -i db.fasta -o db_packed
     python -m swimm_tpu_torch search -d db_packed -q q.fasta \\
-        -s BLOSUM62 -g 10 -e 2 -r 16 [--query-pack] [--device cpu] [--json]
+        -s BLOSUM62 -g 10 -e 2 -r 16 [--precision ladder] [--query-pack] \\
+        [--evalue [--max-evalue E]] [--device cpu] [--json]
 
 search runs on the CUDA device unless --device cpu is given.
 """
@@ -41,6 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("-g", "--gap-open", type=int, default=10)
     se.add_argument("-e", "--gap-extend", type=int, default=2)
     se.add_argument("-r", "--top-k", type=int, default=16)
+    se.add_argument("--precision",
+                    choices=["adaptive", "ladder", "f32", "int32"],
+                    default="adaptive",
+                    help="adaptive = fastest exact path for the hardware; "
+                         "ladder = reference-style narrow-first + overflow "
+                         "recheck (the same scores)")
     se.add_argument("--query-pack", dest="query_pack", action="store_true",
                     default=False,
                     help="pack the query batch along the profile axis: one "
@@ -52,6 +59,15 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch scorers)")
+    se.add_argument("--evalue", action="store_true",
+                    help="attach empirical E-values to hits, fitted from "
+                         "this search's own score distribution "
+                         "(utils/stats.py; the score histogram is taken on "
+                         "the device)")
+    se.add_argument("--max-evalue", type=float, default=None,
+                    help="report only hits with E-value <= this bound "
+                         "(requires --evalue; ranks renumbered after the "
+                         "filter)")
     se.add_argument("--json", action="store_true", help="JSON output")
 
     sy = sub.add_parser("synth", help="generate a synthetic protein FASTA")
@@ -96,20 +112,43 @@ def _run(args) -> int:
         print(f"wrote {len(recs)} synthetic sequences to {args.output}")
         return 0
 
+    from dataclasses import replace
+
     from swimm_tpu_torch.db import load_db
     from swimm_tpu_torch.fasta import read_fasta
     from swimm_tpu_torch.models.engine import SearchConfig, search
 
+    if args.evalue and args.query_pack:
+        raise ValueError(
+            "--evalue runs per-query statistics; it does not combine with "
+            "--query-pack — drop one of the two flags")
+    if args.max_evalue is not None:
+        if not args.evalue:
+            raise ValueError(
+                "--max-evalue filters on E-values, which are only computed "
+                "under --evalue — add --evalue or drop --max-evalue")
+        if args.max_evalue <= 0:
+            raise ValueError("--max-evalue must be positive")
     config = SearchConfig(matrix=args.matrix, gap_open=args.gap_open,
                           gap_extend=args.gap_extend, top_k=args.top_k,
-                          query_pack=args.query_pack)
+                          precision=args.precision,
+                          query_pack=args.query_pack, evalue=args.evalue)
     results, metrics = search(load_db(args.db), read_fasta(args.query),
                               config, device=args.device)
+    if args.max_evalue is not None:
+        # a cutoff on the reported list only (scores and the fitted model
+        # are untouched); ranks renumbered so the table stays 1..n
+        for r in results:
+            r.hits = [replace(h, rank=i + 1) for i, h in enumerate(
+                h2 for h2 in r.hits if h2.evalue <= args.max_evalue)]
     if args.json:
         print(json.dumps({
             "results": [{"query": r.query_title,
                          "hits": [{"rank": h.rank, "score": h.score,
-                                   "title": h.title} for h in r.hits]}
+                                   "title": h.title,
+                                   **({"evalue": h.evalue}
+                                      if h.evalue is not None else {})}
+                                  for h in r.hits]}
                         for r in results],
             "metrics": json.loads(metrics.to_json()),
         }, indent=1))

@@ -139,6 +139,23 @@ class PackedDb:
         self._lane_maps_cache = (mask, lane2sorted)
         return self._lane_maps_cache
 
+    def block_max_lengths(self) -> np.ndarray:
+        """Per global block row, the longest true sequence length in it
+        (sequences are length-sorted ascending, so it is the last real
+        lane): the per-block score bounds of the precision ladder
+        (ops/ladder.py). int64, cached on the instance."""
+        cached = getattr(self, "_block_maxlen_cache", None)
+        if cached is not None:
+            return cached
+        out = []
+        for ch in self.chunks:
+            for b in range(ch.n_blocks):
+                lo = ch.base + b * ch.V
+                hi = min(lo + ch.V, self.n_seqs)
+                out.append(int(self.lengths[hi - 1]) if hi > lo else 0)
+        self._block_maxlen_cache = np.asarray(out, dtype=np.int64)
+        return self._block_maxlen_cache
+
     def seq_codes(self, sorted_idx: int) -> np.ndarray:
         """Recover one sequence's residue codes from the packed chunks."""
         if not 0 <= sorted_idx < self.n_seqs:

@@ -12,8 +12,14 @@ With SearchConfig(query_pack=True) the batch is packed along the query
 axis instead (models/qpack.py): one launch of the packed kernel per pack
 scores up to 24 queries at once into per-query planes, and one top-k runs
 over all planes. score_db is the per-chunk API: every lane's score for one
-query, one launch per chunk (for a long query: one launch per query tile
-over all chunks).
+query, one launch over all chunks (for a long query: one launch per query
+tile over all chunks).
+
+SearchConfig(evalue=True) also takes each query's (32 length bins x 512
+scores) histogram on the device (score_hist) and fits the E-value model
+from it on the host (utils/stats.py). SearchConfig(precision='ladder')
+runs the adaptive-precision ladder (ops/ladder.py); with evalue it scores
+each query's full vector through score_db and fits that instead.
 
 Entry points run on 'cuda' unless the caller passes device='cpu' (the plain
 PyTorch scorers). With no card and no device='cpu' they raise; they never
@@ -35,6 +41,7 @@ from swimm_tpu_torch.models import qpack
 from swimm_tpu_torch.models.profile import build_query_profile
 from swimm_tpu_torch.models.stream import dispatched_rows, select_mode
 from swimm_tpu_torch.ops import longquery, scorer
+from swimm_tpu_torch.utils import stats
 from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics
 
 
@@ -43,11 +50,11 @@ class SearchConfig:
     """Same fields and validation as swimm_tpu.models.engine.SearchConfig.
 
     Supported here: precision 'adaptive' | 'f32' | 'int32' (all compute
-    exact int32) and query_pack. precision='ladder', db_stream and evalue
-    are accepted by the dataclass (same fields) but search() and score_db()
-    raise NotImplementedError for them until their ROADMAP items land;
-    backend, window_tiles, max_in_flight and stream_scores are carried for
-    parity and unused.
+    exact int32) and 'ladder' (narrow tiers first, the same scores),
+    query_pack and evalue. db_stream is accepted by the dataclass (same
+    fields) but search() and score_db() raise NotImplementedError for it
+    until its ROADMAP item lands; backend, window_tiles, max_in_flight and
+    stream_scores are carried for parity and unused.
     """
     matrix: str = "BLOSUM62"
     gap_open: int = 10
@@ -88,27 +95,24 @@ class SearchConfig:
 
 
 def check_supported(config: SearchConfig) -> None:
-    """Raise NotImplementedError for the postures not ported yet, naming
-    the ROADMAP.md Queue 1 item that will bring each."""
-    todo = [("precision='ladder'", config.precision == "ladder",
-             "Queue 1 item 'Adaptive-precision ladder'"),
-            ("db_stream=True", config.db_stream,
-             "Queue 1 item 'Streaming posture'"),
-            ("evalue=True", config.evalue,
-             "Queue 1 item 'E-value statistics'")]
-    for what, on, item in todo:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to swimm_tpu_torch yet ({item} in "
-                "ROADMAP.md)")
-    if config.precision not in ("adaptive", "f32", "int32"):
+    """Raise NotImplementedError for the posture not ported yet (naming
+    the ROADMAP.md Queue 1 item that will bring it), ValueError for an
+    unknown precision or gaps past scorer.MAX_GAP."""
+    if config.db_stream:
+        raise NotImplementedError(
+            "db_stream=True is not ported to swimm_tpu_torch yet (Queue 1 "
+            "item 'Streaming posture' in ROADMAP.md)")
+    if config.precision not in ("adaptive", "ladder", "f32", "int32"):
         raise ValueError(f"unknown precision {config.precision!r}")
+    scorer.check_gaps(config.gap_open, config.gap_extend)
 
 
 def kernel_precision(config: SearchConfig) -> str:
-    """The scorers' precision argument for this config ('adaptive' runs
-    the exact pass, as in the JAX package)."""
-    return "f32" if config.precision == "adaptive" else config.precision
+    """The scorers' precision argument for this config ('adaptive', and
+    the ladder's exact passes, run the exact f32 pass, as in the JAX
+    package)."""
+    return ("f32" if config.precision in ("adaptive", "ladder")
+            else config.precision)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,6 +135,12 @@ class Hit:
     sorted_idx: int
     orig_idx: int
     title: str
+    evalue: float | None = None   # set only under SearchConfig.evalue
+    bits: float | None = None     # empirical bit score, set with evalue
+
+
+def _fmt_evalue(e: float) -> str:
+    return f"{e:.2g}" if e < 0.1 else f"{e:.2f}"
 
 
 @dataclass
@@ -140,24 +150,33 @@ class QueryResult:
     hits: list
 
     def as_table(self) -> str:
+        with_e = any(h.evalue is not None for h in self.hits)
+        head = f"{'rank':>4} {'score':>7}"
+        head += f" {'E-value':>9}  title" if with_e else "  title"
         lines = [f"Query: {self.query_title} ({self.query_length} aa)",
-                 f"{'rank':>4} {'score':>7}  title"]
+                 head]
         for h in self.hits:
-            lines.append(f"{h.rank:>4} {h.score:>7}  {h.title}")
+            row = f"{h.rank:>4} {h.score:>7}"
+            if with_e:
+                row += f" {_fmt_evalue(h.evalue):>9}"
+            lines.append(f"{row}  {h.title}")
         return "\n".join(lines)
 
 
-def device_bytes_needed(packed: PackedDb, query_pack: bool = False) -> int:
+def device_bytes_needed(packed: PackedDb, query_pack: bool = False,
+                        evalue: bool = False) -> int:
     """Device memory the resident path needs: the int8 tile stream, its
     (T,) row map, the lane maps, and the int32 carry scratch (8 bytes per
     tile byte) that multi-strip and long queries use. With query_pack, also
     one pack's score planes and their int64 top-k keys (4 + 8 bytes per
-    plane lane)."""
+    plane lane); with evalue, the int32 lane bin map (device_lane_bins)."""
     tiles, outrow, n_rows = packed.flat_tiles()
     lanes = n_rows * int(packed.manifest["V"])
     need = tiles.nbytes * 9 + outrow.nbytes + lanes * 5 + 8 * (n_rows + 1)
     if query_pack:
         need += lanes * (qpack.N_SEG_CAP // 2) * 12
+    if evalue:
+        need += lanes * 4
     return need
 
 
@@ -225,12 +244,46 @@ def device_chunk_table(packed: PackedDb, device=None):
     return per_db[key]
 
 
+def device_lane_bins(packed: PackedDb, device=None) -> torch.Tensor:
+    """(n_rows * V,) int32 ln-length bin id of every lane
+    (stats.lane_bin_map; pad lanes read 0), uploaded once per (PackedDb,
+    device) and cached beside device_tiles' entry."""
+    dev = resolve_device(device)
+    device_tiles(packed, dev)              # uploads, or raises if too large
+    per_db = _DEVICE_TILE_CACHE[packed]
+    key = f"{dev}/lane_bins"
+    if key not in per_db:
+        mask, lane2sorted = packed.lane_maps()
+        per_db[key] = torch.from_numpy(stats.lane_bin_map(
+            mask, lane2sorted, packed.lengths)).to(dev)
+    return per_db[key]
+
+
+def score_hist(scores: torch.Tensor, mask: torch.Tensor,
+               lane_bins: torch.Tensor) -> torch.Tensor:
+    """(N_LEN_BINS, SCORE_CAP + 1) int64 count table of one query's lane
+    scores, on their device (counterpart of swimm_tpu's hist_from_scores):
+    one torch.bincount over bin * 512 + clamp(score, 0, 511). Pad lanes go
+    to one extra trash bin, dropped, rather than through boolean indexing,
+    which would synchronise the device on every query. The TPU's one-hot
+    matmuls exist only because scatter-add serialises there."""
+    width = stats.SCORE_CAP + 1
+    trash = stats.N_LEN_BINS * width
+    idx = torch.where(mask, lane_bins * width
+                      + scores.clamp(0, stats.SCORE_CAP), trash)
+    return torch.bincount(idx, minlength=trash + 1)[:trash].view(
+        stats.N_LEN_BINS, width)
+
+
+def _m_pad(length: int, m_multiple: int) -> int:
+    return -(-max(length, 1) // m_multiple) * m_multiple
+
+
 def group_by_m_pad(queries, m_multiple: int) -> dict:
     """{padded profile length: [positions]} — one dispatch group each."""
     groups: dict = {}
     for pos, q in enumerate(queries):
-        m_pad = -(-max(q.length, 1) // m_multiple) * m_multiple
-        groups.setdefault(m_pad, []).append(pos)
+        groups.setdefault(_m_pad(q.length, m_multiple), []).append(pos)
     return groups
 
 
@@ -337,20 +390,26 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
     fixed-size pack. Otherwise one scorer call per query over the resident
     stream, queries grouped by padded profile length. Either way the top-k
     is taken on the device and each output crosses to the host once per
-    batch (once per pack on the packed path).
+    batch (once per pack on the packed path). With config.evalue each
+    query's score histogram is taken on the device too (score_hist), and
+    the tables come to the host once per batch beside the hits.
+    precision='ladder' runs _search_ladder_batch instead.
 
     Returns (hit lists in input order, padded query rows dispatched)."""
     check_supported(config)
     dev_db = device_tiles(packed, device)
+    if config.precision == "ladder":
+        return _search_ladder_batch(packed, queries, config, dev_db)
     if config.query_pack and all(
             qpack._rows_needed(q.length) <= qpack.PACK_BUCKETS[-1]
             for q in queries):
         return _search_packed(packed, queries, config, dev_db)
     dev = dev_db[0].device
     mask, lane2sorted = dev_db[4], dev_db[5]
+    lane_bins = device_lane_bins(packed, dev) if config.evalue else None
     k = min(config.top_k, mask.numel())
     out = [None] * len(queries)
-    order, vs, sis = [], [], []
+    order, vs, sis, hists = [], [], [], []
     padded_rows = 0
     for m_pad, positions in group_by_m_pad(
             queries, config.m_multiple).items():
@@ -359,17 +418,69 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
         for p in positions:
             qp = torch.from_numpy(build_query_profile(
                 queries[p].codes, config.matrix, config.m_multiple)).to(dev)
-            v, si = device_top_k(score_lanes(dev_db, qp, mode, config),
-                                 mask, lane2sorted, k)
+            scores = score_lanes(dev_db, qp, mode, config)
+            v, si = device_top_k(scores, mask, lane2sorted, k)
             order.append(p)
             vs.append(v)
             sis.append(si)
+            if config.evalue:
+                hists.append(score_hist(scores, mask, lane_bins))
     if not order:
         return out, padded_rows
     vs_all = torch.stack(vs).cpu().numpy()      # synchronises the device
     sis_all = torch.stack(sis).cpu().numpy()
+    if config.evalue:
+        hists_all = torch.stack(hists).cpu().numpy()
+        _, bin_logl = stats.length_bins(packed.lengths)
     for row, p in enumerate(order):
         out[p] = _hits_from(packed, vs_all[row], sis_all[row], config.top_k)
+        if config.evalue:
+            model = stats.fit_evalue_model_hist(hists_all[row], bin_logl)
+            stats.attach_evalues(out[p], model, packed.lengths)
+    return out, padded_rows
+
+
+def _search_ladder_batch(packed: PackedDb, queries, config: SearchConfig,
+                         dev_db):
+    """precision='ladder' for a query batch: the tiers of every
+    padded-length group through ladder.topk_db_adaptive_serving (top-k
+    candidates on the device, each tier's flagged blocks gathered from the
+    resident stream). Queries over max_query_pad() padded rows leave the
+    ladder for the exact score_db (as swimm_tpu does on its kernels: the
+    long-query kernels are exact). With evalue, every query takes the
+    full-vector path instead: score_db (the ladder or exact), the unbinned
+    fit, its top-k.
+
+    Returns (hit lists in input order, padded query rows dispatched)."""
+    from swimm_tpu_torch.ops import ladder
+    dev = dev_db[0].device
+    mm = config.m_multiple
+    out = [None] * len(queries)
+    padded_rows = 0
+    full_vector = list(range(len(queries))) if config.evalue else []
+    groups = {} if config.evalue else group_by_m_pad(queries, mm)
+    for m_pad in [m for m in groups if m > scorer.max_query_pad()]:
+        full_vector += groups.pop(m_pad)
+    if groups:
+        group_list = [(np.stack([
+            build_query_profile(queries[p].codes, config.matrix, mm)
+            for p in positions]), [queries[p].length for p in positions])
+            for positions in groups.values()]
+        cand_groups, _ = ladder.topk_db_adaptive_serving(
+            packed, group_list, config.top_k, config.gap_open,
+            config.gap_extend, matrix=config.matrix, dev_db=dev_db)
+        for (m_pad, positions), cand in zip(groups.items(), cand_groups):
+            padded_rows += m_pad * len(positions)
+            for row, p in enumerate(positions):
+                out[p] = _hits_from(packed, *cand[row], config.top_k)
+    for p in full_vector:
+        svec = score_db(packed, queries[p], config, dev)
+        out[p] = top_k_hits(packed, svec, config.top_k)
+        if config.evalue:
+            stats.attach_evalues(out[p], stats.fit_evalue_model(
+                svec, packed.lengths), packed.lengths)
+        m_pad = _m_pad(queries[p].length, mm)
+        padded_rows += dispatched_rows(select_mode(m_pad), m_pad)
     return out, padded_rows
 
 
@@ -414,15 +525,27 @@ def score_db(packed: PackedDb, query: FastaRecord,
              config: SearchConfig | None = None, device=None) -> np.ndarray:
     """All-lane scores for one query, in sorted-db order (n_seqs,) int32:
     one kernel launch over all chunks (a long query: one per query tile),
-    all launched before the one synchronising device-to-host copy."""
+    all launched before the one synchronising device-to-host copy. With
+    precision='ladder' and at most max_query_pad() padded rows:
+    ladder.score_db_adaptive over the resident stream instead (the same
+    scores)."""
     config = config or SearchConfig()
     check_supported(config)
+    qp = torch.from_numpy(build_query_profile(
+        query.codes, config.matrix, config.m_multiple))
+    if (config.precision == "ladder"
+            and qp.shape[1] <= scorer.max_query_pad()):
+        from swimm_tpu_torch.ops import ladder
+        dev_db = device_tiles(packed, device)
+        scores2d, _ = ladder.score_db_adaptive(
+            packed, qp.to(dev_db[0].device), query.length, config.gap_open,
+            config.gap_extend, matrix=config.matrix, dev_db=dev_db)
+        return scatter_lane_scores(packed, scores2d.reshape(-1))
     chunks, table = device_chunk_table(packed, device)
     out = np.zeros(packed.n_seqs, dtype=np.int32)
     if not chunks:
         return out
-    qp = torch.from_numpy(build_query_profile(
-        query.codes, config.matrix, config.m_multiple)).to(table.device)
+    qp = qp.to(table.device)
     flat = torch.cat([s.reshape(-1) for s in _chunk_scorer(config)(
         chunks, table, qp)]).cpu().numpy()
     lane0 = 0

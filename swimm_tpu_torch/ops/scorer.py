@@ -44,14 +44,37 @@ MAX_LANES = 512    # lane width V at most: a CUDA block has a thread per lane
 # the CPU tests see the card's
 
 
+MAX_GAP = 1 << 19  # gap_open and gap_extend at most (real penalties are tens)
+# Every scorer computes in int32. Where each would first wrap, with goe =
+# gap_open + gap_extend and H <= 34,816 (2,048 rows in one pass times 17,
+# the largest entry of the package's matrices):
+#   kernels 1-4 (csrc/sw_walk_hg.cuh) keep hg = H - goe and an F >= -goe
+#     (or NEG), and form F - goe and NEG - goe:       goe <= 2^30
+#   kernel 5 (csrc/sw_walk.cuh) forms E - ge and F - ge from >= -goe:
+#                                                     goe + ge <= 2^31
+#   the plain walk (walk_ref) adds the ramp (m - 1) * ge to H, and
+#     subtracts it from an incoming F that may be NEG = -2^28:
+#     one pass of m = 2,048 rows                      ge <= 1,049,071
+#     a query tile or a pack of m <= 1,024 rows       ge <= 1,836,801
+# so the largest safe gaps are gap_extend <= 1,049,071 and goe <= 2^30.
+# MAX_GAP is the simpler bound inside that: a one-pass plain walk of up to
+# (2^31 - 2^28) / 2^19 = 3,584 rows stays in range (walk_ref refuses more).
+# swimm_tpu has no such check and returns wrong scores past the bound.
+RAMP_LIMIT = (1 << 31) + NEG   # the plain walk's largest (m - 1) * ge
+
+
 def check_gaps(gap_open: int, gap_extend: int) -> None:
     """gap_open >= 0 and gap_extend >= 0 are load-bearing for exactness:
     the plain version's F recovery needs goe >= ge; ge == 0 (flat gap cost)
-    is legal."""
+    is legal. Both at most MAX_GAP, on every device, or int32 wraps."""
     if gap_open < 0:
         raise ValueError(f"gap_open must be >= 0 (got {gap_open})")
     if gap_extend < 0:
         raise ValueError(f"gap_extend must be >= 0 (got {gap_extend})")
+    if gap_open > MAX_GAP or gap_extend > MAX_GAP:
+        raise ValueError(f"gap_open and gap_extend must be at most "
+                         f"{MAX_GAP} (got {gap_open}/{gap_extend}): larger "
+                         "penalties overflow the int32 scores")
 
 
 def max_query_pad() -> int:
@@ -130,6 +153,9 @@ def walk_ref(tiles, row_start, n_rows: int, qp, gap_open: int,
     """
     T, jt, V = tiles.shape
     m = qp.shape[1]
+    if (m - 1) * gap_extend > RAMP_LIMIT:
+        raise ValueError(f"a {m}-row profile at gap_extend={gap_extend} "
+                         "overflows the plain walk's int32 ramp")
     dev = tiles.device
     goe, ge = gap_open + gap_extend, gap_extend
     i32 = torch.int32

@@ -15,6 +15,7 @@ from swimm_tpu.ops import longquery, pallas_scorer, reference, xla_scorer
 from swimm_tpu.utils.synth import mutate, random_codes
 from swimm_tpu_torch.ops import longquery as tlong
 from swimm_tpu_torch.ops import scorer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def chunk_case(seed, qlen, B=3, L=64, V=8):

@@ -19,6 +19,7 @@ from swimm_tpu_torch import fasta as tfasta
 from swimm_tpu_torch.matrices import available_matrices, kernel_table
 from swimm_tpu_torch.models.profile import build_query_profile
 from swimm_tpu_torch.utils import synth as tsynth
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _same_pack(a, b):

@@ -24,6 +24,7 @@ from swimm_tpu_torch import SearchConfig, build_db, score_db, search
 from swimm_tpu_torch.fasta import FastaRecord
 from swimm_tpu_torch.models import engine, qpack
 from swimm_tpu_torch.utils.synth import random_codes, synth_db
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -104,14 +105,17 @@ def test_search_precisions_and_unported_postures(tmp_path):
     rng = np.random.default_rng(24)
     q = FastaRecord("q", random_codes(rng, 20))
     pt, pj = _db(tmp_path, synth_db(40, seed=12, median_len=40, max_len=80))
-    for prec in ("f32", "int32"):
+    for prec in ("f32", "int32", "ladder"):
         _compare(pt, pj, [q], precision=prec)
-    for kw in ({"precision": "ladder"}, {"db_stream": True},
-               {"evalue": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            search(pt, [q], SearchConfig(**kw), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            score_db(pt, q, SearchConfig(**kw), device="cpu")
+    _compare(pt, pj, [q], evalue=True)
+    for kw in ({"precision": "ladder"}, {"evalue": True}):
+        engine.check_supported(SearchConfig(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        search(pt, [q], SearchConfig(db_stream=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        score_db(pt, q, SearchConfig(db_stream=True), device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        search(pt, [q], SearchConfig(precision="f16"), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"gap_open": -1}, {"gap_extend": -2},
@@ -144,6 +148,7 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
     code = ("import sys, swimm_tpu_torch, swimm_tpu_torch.cli, "
             "swimm_tpu_torch.models.engine, swimm_tpu_torch.models.qpack, "
             "swimm_tpu_torch.ops.scorer, swimm_tpu_torch.ops.longquery, "
+            "swimm_tpu_torch.ops.ladder, swimm_tpu_torch.utils.stats, "
             "swimm_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "

@@ -14,6 +14,7 @@ from swimm_tpu.ops import longquery, reference
 from swimm_tpu.utils.synth import mutate, random_codes
 from swimm_tpu_torch.ops import longquery as tlong
 from swimm_tpu_torch.ops import scorer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _case(seed, qlen, lengths, V=8):

@@ -16,6 +16,7 @@ from swimm_tpu.ops import pallas_scorer, reference
 from swimm_tpu.utils.synth import mutate, random_codes
 from swimm_tpu_torch.models import qpack
 from swimm_tpu_torch.ops import scorer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def ragged_db(rng, lengths, V=8, jt=32):

@@ -14,6 +14,7 @@ from swimm_tpu.models.profile import build_query_profile
 from swimm_tpu.ops import pallas_scorer, reference, xla_scorer
 from swimm_tpu.utils.synth import random_codes
 from swimm_tpu_torch.ops import scorer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def ragged_case(rng, lengths, V=8, jt=32):
@@ -181,3 +182,106 @@ def test_lane_width_limit_is_the_kernels_thread_limit(V, ok):
 def test_row_starts():
     outrow = torch.tensor([0, 0, 1, 3, 3, 3], dtype=torch.int32)
     assert scorer.row_starts(outrow, 4).tolist() == [0, 2, 3, 3, 6]
+
+
+# ---- the int32 gap bound (scorer.MAX_GAP) --------------------------------
+# The input of the fault it repairs: synth_db(12, seed=2, median_len=60,
+# max_len=120), V=8, BLOSUM62, the query the second draw of
+# default_rng(3) (100 aa; 2,100 aa for the long paths). At gaps 0 / 2^26
+# the plain scorers used to wrap int32 (and swimm_tpu still returns wrong
+# scores there); now every path equals the oracle up to MAX_GAP and raises
+# past it, on every device.
+
+@pytest.fixture(scope="module")
+def gap_world(tmp_path_factory):
+    from swimm_tpu_torch import build_db
+    from swimm_tpu_torch.fasta import FastaRecord
+    from swimm_tpu_torch.utils.synth import synth_db
+    packed = build_db(synth_db(12, seed=2, median_len=60, max_len=120),
+                      tmp_path_factory.mktemp("gaps") / "db", V=8)
+    rng = np.random.default_rng(3)
+    rng.integers(0, 20, 20)
+    queries = {"short": FastaRecord("q100", rng.integers(0, 20, 100)),
+               "long": FastaRecord("q2100", rng.integers(0, 20, 2100))}
+    return packed, queries, {}
+
+
+def _oracle(world, which, go, ge):
+    packed, queries, cache = world
+    if (which, go, ge) not in cache:
+        cache[which, go, ge] = reference.sw_score_many(
+            queries[which].codes,
+            [packed.seq_codes(i) for i in range(packed.n_seqs)],
+            get_matrix("BLOSUM62"), go, ge)
+    return cache[which, go, ge]
+
+
+def _gap_path(path, packed, queries, go, ge):
+    """Sorted-db score vector of one path of the port at gaps go/ge."""
+    from swimm_tpu_torch.models import engine, qpack
+    from swimm_tpu_torch.ops import longquery
+    which = "long" if path.endswith("long") else "short"
+    q = queries[which]
+    cfg = engine.SearchConfig(gap_open=go, gap_extend=ge,
+                              top_k=packed.n_seqs)
+    tiles, outrow, n_rows, rs = engine.device_tiles(packed, "cpu")[:4]
+    qp = torch.from_numpy(build_query_profile(q.codes, "BLOSUM62", 16))
+    if path == "score_tiles":
+        lanes = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
+                                   row_start=rs)
+    elif path == "score_tiles_long":
+        lanes = longquery.score_tiles_long(tiles, outrow, n_rows, qp, go, ge,
+                                           row_start=rs)
+    elif path == "score_tiles_packed":
+        pack, = qpack.build_query_packs([q], "BLOSUM62")
+        lanes = scorer.score_tiles_packed(
+            tiles, outrow, n_rows, torch.from_numpy(pack.qp),
+            torch.from_numpy(pack.seg_of_group), go, ge,
+            row_start=rs)[:, pack.entries[0].seg // 2]
+    elif path.startswith("score_db"):
+        return engine.score_db(packed, q, cfg, device="cpu")
+    elif path == "ladder":
+        return engine.score_db(packed, q, engine.SearchConfig(
+            gap_open=go, gap_extend=ge, precision="ladder"), device="cpu")
+    else:                                  # search, search_long, packed
+        res, _ = engine.search(packed, [q], engine.SearchConfig(
+            gap_open=go, gap_extend=ge, top_k=packed.n_seqs,
+            query_pack=path == "search_packed"), device="cpu")
+        out = np.full(packed.n_seqs, -1, np.int64)
+        for h in res[0].hits:
+            out[h.sorted_idx] = h.score
+        return out
+    return engine.scatter_lane_scores(packed, lanes.reshape(-1).numpy())
+
+
+GAP = scorer.MAX_GAP
+
+
+@pytest.mark.parametrize("go,ge,inside", [
+    (GAP, GAP, True), (0, GAP, True), (GAP + 1, 0, False),
+    (0, GAP + 1, False)])
+@pytest.mark.parametrize("path", [
+    "score_tiles", "score_tiles_packed", "score_tiles_long", "score_db",
+    "score_db_long", "search", "search_packed", "search_long", "ladder"])
+def test_gap_bound_every_path(gap_world, path, go, ge, inside):
+    packed, queries, _ = gap_world
+    if not inside:
+        with pytest.raises(ValueError, match="at most"):
+            _gap_path(path, packed, queries, go, ge)
+        return
+    which = "long" if path.endswith("long") else "short"
+    got = _gap_path(path, packed, queries, go, ge)
+    assert np.array_equal(got, _oracle(gap_world, which, go, ge))
+
+
+def test_plain_walk_refuses_a_ramp_past_int32():
+    # MAX_GAP keeps a one-pass plain walk in range up to 3,584 rows; a
+    # longer profile at that gap_extend is refused, not wrapped
+    tiles = torch.zeros((1, 32, 8), dtype=torch.int8)
+    outrow = torch.zeros(1, dtype=torch.int32)
+    ok = torch.zeros((32, 3584), dtype=torch.int32)
+    assert not scorer.score_tiles_ref(tiles, outrow, 1, ok, 0, GAP).any()
+    with pytest.raises(ValueError, match="ramp"):
+        scorer.score_tiles_ref(tiles, outrow, 1,
+                               torch.zeros((32, 3592), dtype=torch.int32),
+                               0, GAP)
