@@ -73,6 +73,20 @@ counts (the kernels line keeps counting the main paths of 3-6):
      scores;
  12. 4 queries with the ladder and evalue=True: E-values equal the fit of
      the exact score_db vectors.
+Then the streaming posture (db_stream=True) on the phase-3 DB loaded again
+with load_db (memmapped chunk files), each run after a warm-up with its
+launch counts added to the kernels line (kernels 1 and 2):
+ 13. the 20 queries at the default window_tiles=8192 (7 windows) under the
+     'buffer' and 'candidates' merges, each with and without evalue: hits,
+     E-values and bit scores equal the resident search's; one run under
+     torch.profiler (device idle share, host-to-device copy ms beside the
+     bytes the windows hold); kernel 1's ms on each window for query 0;
+ 14. the 20 queries at window_tiles=1024 (about 50 windows), both merges,
+     equal hits, with the peak device memory the run allocates held under
+     a bound from its slots, carries and buffers;
+ 15. the 5,000-aa query streamed (kernel 2 per query tile per window);
+ 16. score_db_streaming for query 0 and the 5,000-aa query, equal to
+     score_db's vectors; no streaming phase uploads the resident DB.
 
 Imports nothing of JAX or of the swimm_tpu package.
 """
@@ -626,9 +640,9 @@ def check_hits(packed, queries, results, config, n_oracle: int) -> int:
 
 def device_breakdown(fn) -> dict:
     """Wall time of fn() under torch.profiler, the device time of its CUDA
-    kernels (ours vs the rest), and the device's idle share of the wall.
-    Device numbers read "not measured" when the trace holds no device
-    time."""
+    kernels (ours vs the rest, host-to-device copies among the rest and
+    also apart), and the device's idle share of the wall. Device numbers
+    read "not measured" when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -636,7 +650,7 @@ def device_breakdown(fn) -> dict:
         t = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t) * 1e3
-    ours = other = 0.0
+    ours = other = h2d = 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -645,12 +659,14 @@ def device_breakdown(fn) -> dict:
             ours += us / 1e3
         else:
             other += us / 1e3
+        if "HtoD" in ev.key:
+            h2d += us / 1e3
     if ours + other == 0:
         return {"wall_ms": wall_ms, "kernel_ms": "not measured",
-                "other_device_ms": "not measured", "idle_share":
-                "not measured"}
+                "other_device_ms": "not measured", "h2d_ms": "not measured",
+                "idle_share": "not measured"}
     return {"wall_ms": wall_ms, "kernel_ms": ours, "other_device_ms": other,
-            "idle_share": 1 - (ours + other) / wall_ms}
+            "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms}
 
 
 def instruction_rate() -> float:
@@ -879,6 +895,209 @@ def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
     return out
 
 
+def same_evalues_of(a, b) -> bool:
+    return ([[(h.evalue, h.bits) for h in r.hits] for r in a]
+            == [[(h.evalue, h.bits) for h in r.hits] for r in b])
+
+
+def window_kernel_ms(dev_db, spans, cum, qp) -> list:
+    """Kernel 1's device ms on each window of a plan, at its fill, over the
+    resident stream's tiles (the same codes the streamed window holds)."""
+    from swimm_tpu_torch.ops import scorer
+    tiles, outrow = dev_db[:2]
+    out = []
+    for g0, g1 in spans:
+        t0, t1 = int(cum[g0]), int(cum[g1])
+        rs = torch.from_numpy(cum[g0:g1 + 1] - t0).cuda()
+        orow = (outrow[t0:t1] - g0).contiguous()
+        out.append(cuda_ms(lambda: scorer.score_tiles(
+            tiles[t0:t1], orow, g1 - g0, qp, 10, 2, row_start=rs)))
+    return out
+
+
+def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
+                 met, long_met, vec, vec_l, config, counted) -> dict:
+    """Phases 13-16, the streaming posture (db_stream=True) on the phase-3
+    DB loaded again with load_db (memmapped chunk files; windows read with
+    readinto into pinned slots). Every search is driven once after a
+    warm-up with the launch counters set to 0 just before and read just
+    after; its launches count on the kernels line (kernels 1 and 2). Every
+    result is held exactly against the resident one: hits, E-values and
+    bit scores; score_db_streaming against score_db's vectors. Returns the
+    numbers and phase times."""
+    from swimm_tpu_torch.db import load_db
+    from swimm_tpu_torch.models import engine, stream
+    from swimm_tpu_torch.models.engine import (SearchConfig,
+                                               score_db_streaming, search)
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import longquery
+    out, phases = {}, {}
+    spacked = load_db(db_dir)
+    if not isinstance(spacked.chunks[0].codes, np.memmap):
+        raise AssertionError("load_db did not memmap the chunk files")
+    layout = stream.stream_layout(spacked)
+    cum, V, jt = layout["cum"], layout["V"], layout["jt"]
+    qp0 = torch.from_numpy(build_query_profile(
+        queries[0].codes, config.matrix, config.m_multiple)).cuda()
+
+    def plan(wt):
+        spans, r_cap = stream.plan_windows(layout, wt)
+        return spans, r_cap, stream.effective_window_tiles(layout, spans)
+
+    def h2d_bytes(spans):   # codes, local rows, row starts of each window
+        return sum(int(cum[g1] - cum[g0]) * (jt * V + 4) + 8 * (g1 - g0 + 1)
+                   for g0, g1 in spans)
+
+    def expect(seen, k1, k2=0):
+        want = dict.fromkeys(seen, 0)
+        want.update(sw_ragged_kernel=k1, sw_ragged_qtile_kernel=k2)
+        if seen != want:
+            raise AssertionError(f"expected launches {want}, got {seen}")
+
+    # ---- phase 13: the 20 queries at 8,192 tiles, both merges, E-values --
+    t = time.perf_counter()
+    spans, r_cap, wt = plan(8192)
+    n_win = len(spans)
+    e_res, e_met = search(packed, queries, SearchConfig(top_k=16,
+                                                        evalue=True))
+    search(spacked, queries, SearchConfig(top_k=16, db_stream=True))
+    runs = {}
+    for merge in ("buffer", "candidates"):
+        for ev in (False, True):
+            cfg = SearchConfig(top_k=16, db_stream=True, stream_scores=merge,
+                               evalue=ev)
+            (res, m), seen = counted(lambda: search(spacked, queries, cfg))
+            expect(seen, n_win * N_QUERIES)
+            if not same_hits(res, e_res if ev else results) or (
+                    ev and not same_evalues_of(res, e_res)):
+                raise AssertionError(f"streamed {N_QUERIES} queries ({merge}, "
+                                     f"evalue={ev}) differ from resident")
+            resident_s = e_met.seconds if ev else met.seconds
+            runs[f"{merge}{'_evalue' if ev else ''}"] = {
+                "seconds": m.seconds, "resident_seconds": resident_s,
+                "ratio": m.seconds / resident_s, "gcups": m.gcups,
+                "padded_gcups": m.padded_gcups, "launches": seen}
+            note(f"streamed {N_QUERIES} queries, {n_win} windows of <= 8192 "
+                 f"tiles, {merge}, evalue={ev}: {m.seconds:.3f} s (resident "
+                 f"{resident_s:.3f} s, x{m.seconds / resident_s:.3f}), "
+                 f"{m.gcups:.1f} real GCUPS, launches {seen}; hits"
+                 f"{', E-values and bit scores' if ev else ''} equal the "
+                 "resident search's")
+    sconfig = SearchConfig(top_k=16, db_stream=True)
+    prof = device_breakdown(lambda: search(spacked, queries, sconfig))
+    win_ms = window_kernel_ms(dev_db, spans, cum, qp0)
+    whole_ms = cuda_ms(lambda: engine.score_lanes(dev_db, qp0, "tiles",
+                                                  config))
+    out["batch20_8192"] = {
+        "windows": n_win, "width_tiles": wt, "r_cap": r_cap,
+        "runs": runs, "profiled": prof, "h2d_bytes": h2d_bytes(spans),
+        "query0_kernel_ms_per_window": win_ms,
+        "query0_kernel_ms_windows_sum": sum(win_ms),
+        "query0_kernel_ms_whole_stream": whole_ms}
+    note(f"streamed {N_QUERIES}-query batch under torch.profiler: {prof}; "
+         f"host-to-device {h2d_bytes(spans)} bytes")
+    note(f"kernel 1, query 0 (m={qp0.shape[1]}), per window of <= 8192 "
+         f"tiles: {[round(x, 3) for x in win_ms]} ms, sum {sum(win_ms):.3f}"
+         f" ms against {whole_ms:.3f} ms over the whole stream")
+    phases["stream20_8192_s"] = time.perf_counter() - t
+
+    # ---- phase 14: 1,024-tile windows, peak device memory ----
+    t = time.perf_counter()
+    spans1, r_cap1, wt1 = plan(1024)
+    depth = sconfig.max_in_flight
+    lanes = layout["n_rows"] * V
+    m_max = max(engine._m_pad(q.length, config.m_multiple) for q in queries)
+    bound = (depth * (wt1 * jt * V + 4 * wt1 + 8 * (r_cap1 + 1))  # ring
+             + 4 * 32 * m_max * N_QUERIES                   # profiles
+             + 13 * lanes                                   # lane maps
+             + 4 * N_QUERIES * lanes                        # score buffer
+             + 8 * wt1 * jt * V                             # strip carry
+             + 40 * r_cap1 * V                              # out + keys
+             + 40 * lanes)                                  # finalize
+    resident_need = engine.device_bytes_needed(packed)
+    one = {}
+    for merge in ("buffer", "candidates"):
+        cfg = SearchConfig(top_k=16, db_stream=True, window_tiles=1024,
+                           stream_scores=merge)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (res, m), seen = counted(lambda: search(spacked, queries, cfg))
+        peak = torch.cuda.max_memory_allocated() - base
+        expect(seen, len(spans1) * N_QUERIES)
+        if not same_hits(res, results):
+            raise AssertionError(f"streamed {N_QUERIES} queries at 1,024 "
+                                 f"tiles ({merge}) differ from resident")
+        if peak > bound:
+            raise AssertionError(f"1,024-tile stream ({merge}): peak device "
+                                 f"memory {peak} bytes over its bound "
+                                 f"{bound}")
+        one[merge] = {"seconds": m.seconds, "gcups": m.gcups,
+                      "launches": seen, "peak_bytes": peak}
+        note(f"streamed {N_QUERIES} queries, {len(spans1)} windows of <= 1024 "
+             f"tiles, {merge}: {m.seconds:.3f} s, {m.gcups:.1f} real GCUPS, "
+             f"launches {seen}, hits equal; peak device memory {peak} bytes "
+             f"(bound {bound}; resident footprint {resident_need})")
+    win1_ms = window_kernel_ms(dev_db, spans1, cum, qp0)
+    out["batch20_1024"] = {"windows": len(spans1), "width_tiles": wt1,
+                           "runs": one, "peak_bound_bytes": bound,
+                           "resident_bytes_needed": resident_need,
+                           "query0_kernel_ms_windows_sum": sum(win1_ms),
+                           "query0_kernel_ms_max_window": max(win1_ms)}
+    note(f"kernel 1, query 0, {len(spans1)} windows of <= 1024 tiles: sum "
+         f"{sum(win1_ms):.3f} ms, longest window {max(win1_ms):.3f} ms")
+    phases["stream20_1024_s"] = time.perf_counter() - t
+
+    # ---- phase 15: the 5,000-aa query streamed (kernel 2) ----
+    t = time.perf_counter()
+    n_qt = -(-engine._m_pad(long_q.length, config.m_multiple)
+             // longquery.LONG_TILE_M)
+    search(spacked, [long_q], sconfig)                   # warm-up
+    (l_res, l_met), seen = counted(lambda: search(spacked, [long_q],
+                                                  sconfig))
+    expect(seen, 0, n_win * n_qt)
+    if not same_hits(l_res, long_res):
+        raise AssertionError("streamed 5,000-aa query differs from resident")
+    out["long5000"] = {"seconds": l_met.seconds,
+                       "resident_seconds": long_met.seconds,
+                       "gcups": l_met.gcups, "launches": seen}
+    note(f"streamed {LONG_LEN}-aa query: {l_met.seconds:.3f} s (resident "
+         f"{long_met.seconds:.3f} s), {l_met.gcups:.1f} real GCUPS, launches"
+         f" {seen}; hits equal")
+    phases["stream_long_s"] = time.perf_counter() - t
+
+    # ---- phase 16: score_db_streaming for query 0 and the long query ----
+    t = time.perf_counter()
+    db_s = {}
+    for name, q, want, k1, k2 in (("query0", queries[0], vec, n_win, 0),
+                                  ("long5000", long_q, vec_l, 0,
+                                   n_win * n_qt)):
+        score_db_streaming(spacked, q, config)           # warm-up
+        t1 = time.perf_counter()
+        got, seen = counted(lambda: score_db_streaming(spacked, q, config))
+        db_s[name] = {"seconds": time.perf_counter() - t1, "launches": seen}
+        expect(seen, k1, k2)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"score_db_streaming({name}) differs from "
+                                 "score_db")
+    # the host side alone: every window read from the chunk files into
+    # pinned slots, no copy, no launch
+    slots = stream.WindowSlots(2, wt, jt, V, r_cap, pin=True)
+    t1 = time.perf_counter()
+    for s, *_ in stream.iter_windows(spacked, 8192, slots):
+        slots.release(s)
+    db_s["host_reads_s"] = time.perf_counter() - t1
+    out["score_db_streaming"] = db_s
+    note(f"score_db_streaming: {db_s}; both vectors equal score_db's; "
+         f"reading the {n_win} windows into pinned slots alone took "
+         f"{db_s['host_reads_s']:.3f} s ({h2d_bytes(spans) / 1e9:.3f} GB)")
+    phases["stream_score_db_s"] = time.perf_counter() - t
+    if spacked in engine._DEVICE_TILE_CACHE:
+        raise AssertionError("a streaming phase uploaded the resident DB")
+    out["phases_s"] = phases
+    return out
+
+
 def main(argv=None) -> int:
     kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
                                         else argv)
@@ -948,17 +1167,19 @@ def main(argv=None) -> int:
     qlens = list(rng.integers(100, 501, size=N_QUERIES))
     queries = synth_queries(N_QUERIES, qlens, seed=1)
     config = SearchConfig(top_k=16)
-    with tempfile.TemporaryDirectory() as td:
-        t = time.perf_counter()
-        fasta = Path(td) / "sp.fasta"
-        n_res = synth_fasta_fast(fasta, N_SEQS, seed=2,
-                                 queries=[q.codes for q in queries],
-                                 homolog_frac=0.0005)
-        phases["synth_s"] = time.perf_counter() - t
-        note(f"synthetic DB: {N_SEQS} seqs, {n_res} residues")
-        t = time.perf_counter()
-        packed = build_db(str(fasta), Path(td) / "db", V=128)
-        phases["parse_pack_s"] = time.perf_counter() - t
+    tmp = tempfile.TemporaryDirectory()   # the packed DB stays on disk for
+    td = Path(tmp.name)                   # the streaming phases
+    t = time.perf_counter()
+    fasta = td / "sp.fasta"
+    n_res = synth_fasta_fast(fasta, N_SEQS, seed=2,
+                             queries=[q.codes for q in queries],
+                             homolog_frac=0.0005)
+    phases["synth_s"] = time.perf_counter() - t
+    note(f"synthetic DB: {N_SEQS} seqs, {n_res} residues")
+    t = time.perf_counter()
+    packed = build_db(str(fasta), td / "db", V=128)
+    phases["parse_pack_s"] = time.perf_counter() - t
+    fasta.unlink()
     tiles_np, _, n_rows = packed.flat_tiles()
     note(f"packed: {n_rows} blocks in {len(packed.chunks)} chunks, tile "
          f"stream {tiles_np.shape} ({tiles_np.nbytes / 1e6:.1f} MB)")
@@ -1098,6 +1319,13 @@ def main(argv=None) -> int:
     later = later_paths(packed, dev_db, queries, results, long_q, long_res,
                         met, long_met, vec, config, counted)
     phases.update(later.pop("phases_s"))
+
+    # ---- phases 13-16: the streaming posture, on the DB loaded again ----
+    streamed = stream_paths(td / "db", packed, dev_db, queries, results,
+                            long_q, long_res, met, long_met, vec, vec_l,
+                            config, counted)
+    phases.update(streamed.pop("phases_s"))
+    tmp.cleanup()
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
     int_rate = instruction_rate()
@@ -1299,6 +1527,7 @@ def main(argv=None) -> int:
                      "chunks": n_chunks},
         "kernel1_tail": k1_tail,
         "evalue_and_ladder": later,
+        "stream": streamed,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

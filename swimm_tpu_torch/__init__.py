@@ -4,7 +4,9 @@ PyTorch and CUDA (NVIDIA Hopper).
 The PyTorch/CUDA counterpart of the ``swimm_tpu`` package, module for
 module: the packed-DB format, the whole-DB resident search path (one launch
 per query, or per pack of queries with ``SearchConfig(query_pack=True)``),
-the per-chunk scoring API ``score_db``, E-value statistics
+the streaming posture for a DB larger than device memory
+(``SearchConfig(db_stream=True)``, ``score_db_streaming``), the per-chunk
+scoring API ``score_db``, E-value statistics
 (``SearchConfig(evalue=True)``), the adaptive-precision ladder
 (``SearchConfig(precision='ladder')``) and their five hand-written kernels
 (csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
@@ -15,7 +17,9 @@ on 'cuda' unless given device='cpu'.
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
   models.engine      SearchConfig, search (resident DB, device top-k,
                      device score histograms), score_db (every lane's
-                     score, all chunks per launch)
+                     score, all chunks per launch), score_db_streaming
+  models.stream      windows read out of core into pinned slots, a copy
+                     stream, the window-major drive loop and its merges
   models.qpack       build_query_packs (many queries in one profile)
   ops.scorer         score_tiles        -> sw_ragged_kernel
                      score_tiles_packed -> sw_ragged_packed_kernel
@@ -35,7 +39,8 @@ __version__ = "0.1.0"
 
 from swimm_tpu_torch.db import build_db, load_db
 from swimm_tpu_torch.fasta import read_fasta
-from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
+from swimm_tpu_torch.models.engine import (SearchConfig, score_db,
+                                           score_db_streaming, search)
 
 __all__ = ["build_db", "load_db", "read_fasta", "SearchConfig", "score_db",
-           "search"]
+           "score_db_streaming", "search"]

@@ -5,7 +5,9 @@ synth, preprocess and search subcommands).
     python -m swimm_tpu_torch preprocess -i db.fasta -o db_packed
     python -m swimm_tpu_torch search -d db_packed -q q.fasta \\
         -s BLOSUM62 -g 10 -e 2 -r 16 [--precision ladder] [--query-pack] \\
-        [--evalue [--max-evalue E]] [--device cpu] [--json]
+        [--evalue [--max-evalue E]] [--device cpu] [--json] \\
+        [--stream [--window-tiles N] [--max-in-flight N] \\
+                  [--stream-scores {auto,buffer,candidates}]]
 
 search runs on the CUDA device unless --device cpu is given.
 """
@@ -56,6 +58,22 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--no-query-pack", dest="query_pack",
                     action="store_false",
                     help="one kernel launch per query (default)")
+    se.add_argument("--stream", action="store_true",
+                    help="stream the DB through the device in windows "
+                         "(for databases larger than device memory)")
+    se.add_argument("--window-tiles", type=int, default=None,
+                    help="most (32,V) tiles in a streaming window "
+                         "(--stream only; default: SearchConfig's)")
+    se.add_argument("--max-in-flight", type=int, default=None,
+                    help="streaming windows alive on the device (--stream "
+                         "only; default: SearchConfig's 2)")
+    se.add_argument("--stream-scores",
+                    choices=["auto", "buffer", "candidates"], default=None,
+                    help="streaming merge (--stream only): 'buffer' keeps "
+                         "every score on the device (4 bytes a sequence "
+                         "and query), 'candidates' merges per-window top-k "
+                         "on the host; 'auto' (default) picks by buffer "
+                         "size")
     se.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch scorers)")
@@ -86,7 +104,7 @@ def main(argv=None) -> int:
         print(f"swimm_tpu_torch: error: file not found: {e.filename or e}",
               file=sys.stderr)
         return 2
-    except (ValueError, NotImplementedError, RuntimeError) as e:
+    except (ValueError, OSError, RuntimeError) as e:
         print(f"swimm_tpu_torch: error: {e}", file=sys.stderr)
         return 2
 
@@ -118,6 +136,19 @@ def _run(args) -> int:
     from swimm_tpu_torch.fasta import read_fasta
     from swimm_tpu_torch.models.engine import SearchConfig, search
 
+    if args.stream and args.query_pack:
+        raise ValueError(
+            "--stream does not support --query-pack: the streaming path "
+            "batches queries per padded length against each window — drop "
+            "one of the two flags")
+    if not args.stream:
+        for flag, on in (("--window-tiles", args.window_tiles is not None),
+                         ("--max-in-flight", args.max_in_flight is not None),
+                         ("--stream-scores", args.stream_scores is not None)):
+            if on:
+                raise ValueError(
+                    f"{flag} only applies to the streaming posture and "
+                    f"would be ignored here — add --stream or drop {flag}")
     if args.evalue and args.query_pack:
         raise ValueError(
             "--evalue runs per-query statistics; it does not combine with "
@@ -129,10 +160,15 @@ def _run(args) -> int:
                 "under --evalue — add --evalue or drop --max-evalue")
         if args.max_evalue <= 0:
             raise ValueError("--max-evalue must be positive")
+    stream_kw = {k: v for k, v in (("window_tiles", args.window_tiles),
+                                   ("max_in_flight", args.max_in_flight),
+                                   ("stream_scores", args.stream_scores))
+                 if v is not None}        # None -> SearchConfig's defaults
     config = SearchConfig(matrix=args.matrix, gap_open=args.gap_open,
                           gap_extend=args.gap_extend, top_k=args.top_k,
                           precision=args.precision,
-                          query_pack=args.query_pack, evalue=args.evalue)
+                          query_pack=args.query_pack, evalue=args.evalue,
+                          db_stream=args.stream, **stream_kw)
     results, metrics = search(load_db(args.db), read_fasta(args.query),
                               config, device=args.device)
     if args.max_evalue is not None:

@@ -21,6 +21,12 @@ from it on the host (utils/stats.py). SearchConfig(precision='ladder')
 runs the adaptive-precision ladder (ops/ladder.py); with evalue it scores
 each query's full vector through score_db and fits that instead.
 
+SearchConfig(db_stream=True) streams the DB through the device in windows
+instead (models/stream.py: window-major, pinned host slots, a copy stream),
+for a DB larger than device memory; search() takes that path by itself,
+with a warning, when the resident DB does not fit (resident_fits).
+score_db_streaming is every lane's score for one query on that path.
+
 Entry points run on 'cuda' unless the caller passes device='cpu' (the plain
 PyTorch scorers). With no card and no device='cpu' they raise; they never
 fall back to the CPU on their own.
@@ -29,8 +35,9 @@ fall back to the CPU on their own.
 from __future__ import annotations
 
 import time
+import warnings
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -39,7 +46,10 @@ from swimm_tpu_torch.db import PackedDb
 from swimm_tpu_torch.fasta import FastaRecord
 from swimm_tpu_torch.models import qpack
 from swimm_tpu_torch.models.profile import build_query_profile
-from swimm_tpu_torch.models.stream import dispatched_rows, select_mode
+from swimm_tpu_torch.models.stream import (check_streamable, dispatched_rows,
+                                           search_streaming_batch,
+                                           select_mode, stream_layout,
+                                           stream_windows)
 from swimm_tpu_torch.ops import longquery, scorer
 from swimm_tpu_torch.utils import stats
 from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics
@@ -51,10 +61,11 @@ class SearchConfig:
 
     Supported here: precision 'adaptive' | 'f32' | 'int32' (all compute
     exact int32) and 'ladder' (narrow tiers first, the same scores),
-    query_pack and evalue. db_stream is accepted by the dataclass (same
-    fields) but search() and score_db() raise NotImplementedError for it
-    until its ROADMAP item lands; backend, window_tiles, max_in_flight and
-    stream_scores are carried for parity and unused.
+    query_pack, evalue, and db_stream with its window_tiles (the cap on a
+    window's tiles), max_in_flight (windows alive on the device) and
+    stream_scores ('buffer' | 'candidates' | 'auto', models/stream.py);
+    db_stream refuses query_pack and the ladder, as in swimm_tpu. backend
+    is carried for parity and unused.
     """
     matrix: str = "BLOSUM62"
     gap_open: int = 10
@@ -95,13 +106,11 @@ class SearchConfig:
 
 
 def check_supported(config: SearchConfig) -> None:
-    """Raise NotImplementedError for the posture not ported yet (naming
-    the ROADMAP.md Queue 1 item that will bring it), ValueError for an
-    unknown precision or gaps past scorer.MAX_GAP."""
+    """Raise ValueError for a posture no path serves (db_stream with
+    query_pack or the ladder, as swimm_tpu does), an unknown precision or
+    gaps past scorer.MAX_GAP."""
     if config.db_stream:
-        raise NotImplementedError(
-            "db_stream=True is not ported to swimm_tpu_torch yet (Queue 1 "
-            "item 'Streaming posture' in ROADMAP.md)")
+        check_streamable(config)
     if config.precision not in ("adaptive", "ladder", "f32", "int32"):
         raise ValueError(f"unknown precision {config.precision!r}")
     scorer.check_gaps(config.gap_open, config.gap_extend)
@@ -169,10 +178,13 @@ def device_bytes_needed(packed: PackedDb, query_pack: bool = False,
     (T,) row map, the lane maps, and the int32 carry scratch (8 bytes per
     tile byte) that multi-strip and long queries use. With query_pack, also
     one pack's score planes and their int64 top-k keys (4 + 8 bytes per
-    plane lane); with evalue, the int32 lane bin map (device_lane_bins)."""
-    tiles, outrow, n_rows = packed.flat_tiles()
-    lanes = n_rows * int(packed.manifest["V"])
-    need = tiles.nbytes * 9 + outrow.nbytes + lanes * 5 + 8 * (n_rows + 1)
+    plane lane); with evalue, the int32 lane bin map (device_lane_bins).
+    From the chunks' metadata alone: no code byte is read."""
+    layout = stream_layout(packed)
+    n_rows, V = layout["n_rows"], layout["V"]
+    lanes = n_rows * V
+    need = (layout["T"] * layout["jt"] * V * 9 + layout["T"] * 4 + lanes * 5
+            + 8 * (n_rows + 1))
     if query_pack:
         need += lanes * (qpack.N_SEG_CAP // 2) * 12
     if evalue:
@@ -181,37 +193,58 @@ def device_bytes_needed(packed: PackedDb, query_pack: bool = False,
 
 
 _DEVICE_TILE_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_LANE_MAP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def resident_fits(packed: PackedDb, device=None) -> bool:
+    """Whether the resident path can serve this DB on the device: always
+    on the CPU; on a card when its tile stream is uploaded already or
+    device_bytes_needed fits the free memory. search() streams the DB
+    when it does not (swimm_tpu keys the same decision on the Pallas
+    kernel's RESIDENT_TILE_CAP; the limit here is device memory)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or str(dev) in _DEVICE_TILE_CACHE.get(packed, {}):
+        return True
+    return device_bytes_needed(packed) <= torch.cuda.mem_get_info(dev)[0]
 
 
 def device_tiles(packed: PackedDb, device=None):
     """Device-resident ragged tile stream of the whole DB, uploaded once
     per (PackedDb, device) and reused across queries. Returns (tiles,
     outrow, n_rows, row_start, mask, lane2sorted), all on the device.
-    Raises if it would not fit in the device's free memory (no streaming
-    in this package yet)."""
+    Raises if it would not fit in the device's free memory."""
     dev = resolve_device(device)
     per_db = _DEVICE_TILE_CACHE.setdefault(packed, {})
     cached = per_db.get(str(dev))
     if cached is not None:
         return cached
-    if dev.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(dev)
-        need = device_bytes_needed(packed)
-        if need > free:
-            raise RuntimeError(
-                f"the resident DB needs {need / 1e9:.2f} GB of device memory "
-                f"(tile stream + scratch) but {free / 1e9:.2f} GB is "
-                "free; DB streaming is not ported yet (ROADMAP.md Queue 1 "
-                "item 'Streaming posture')")
+    if not resident_fits(packed, dev):
+        raise RuntimeError(
+            f"the resident DB needs {device_bytes_needed(packed) / 1e9:.2f} "
+            f"GB of device memory (tile stream + scratch), more than {dev} "
+            "has free; search with SearchConfig(db_stream=True), or score "
+            "one query with engine.score_db_streaming")
     tiles, outrow, n_rows = packed.flat_tiles()
-    mask, lane2sorted = packed.lane_maps()
     t = torch.from_numpy(np.ascontiguousarray(tiles)).to(dev)
     o = torch.from_numpy(outrow).to(dev)
     cached = (t, o, n_rows, scorer.row_starts(o, n_rows),
-              torch.from_numpy(mask).to(dev),
-              torch.from_numpy(lane2sorted.astype(np.int64)).to(dev))
+              *device_lane_maps(packed, dev))
     per_db[str(dev)] = cached
     return cached
+
+
+def device_lane_maps(packed: PackedDb, device=None):
+    """(mask bool, lane2sorted int64), each (n_rows * V,), on the device:
+    uploaded once per (PackedDb, device), apart from the tile stream, so
+    the streaming posture has them without uploading the DB."""
+    dev = resolve_device(device)
+    per_db = _LANE_MAP_CACHE.setdefault(packed, {})
+    if str(dev) not in per_db:
+        mask, lane2sorted = packed.lane_maps()
+        per_db[str(dev)] = (
+            torch.from_numpy(mask).to(dev),
+            torch.from_numpy(lane2sorted.astype(np.int64)).to(dev))
+    return per_db[str(dev)]
 
 
 def device_chunks(packed: PackedDb, device=None) -> list:
@@ -247,10 +280,9 @@ def device_chunk_table(packed: PackedDb, device=None):
 def device_lane_bins(packed: PackedDb, device=None) -> torch.Tensor:
     """(n_rows * V,) int32 ln-length bin id of every lane
     (stats.lane_bin_map; pad lanes read 0), uploaded once per (PackedDb,
-    device) and cached beside device_tiles' entry."""
+    device) and cached beside device_lane_maps' entry."""
     dev = resolve_device(device)
-    device_tiles(packed, dev)              # uploads, or raises if too large
-    per_db = _DEVICE_TILE_CACHE[packed]
+    per_db = _LANE_MAP_CACHE.setdefault(packed, {})
     key = f"{dev}/lane_bins"
     if key not in per_db:
         mask, lane2sorted = packed.lane_maps()
@@ -425,19 +457,28 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
             sis.append(si)
             if config.evalue:
                 hists.append(score_hist(scores, mask, lane_bins))
+    _collect_hits(packed, config, order, vs, sis,
+                  hists if config.evalue else None, out)
+    return out, padded_rows
+
+
+def _collect_hits(packed: PackedDb, config: SearchConfig, order, vs, sis,
+                  hists, out: list) -> None:
+    """Set out[p] for each position p in order from its device top-k (vs,
+    sis: (k,) tensors, one per position) and, when hists is given, its
+    score table: each crosses to the host in one copy for all of them."""
     if not order:
-        return out, padded_rows
+        return
     vs_all = torch.stack(vs).cpu().numpy()      # synchronises the device
     sis_all = torch.stack(sis).cpu().numpy()
-    if config.evalue:
+    if hists is not None:
         hists_all = torch.stack(hists).cpu().numpy()
         _, bin_logl = stats.length_bins(packed.lengths)
     for row, p in enumerate(order):
         out[p] = _hits_from(packed, vs_all[row], sis_all[row], config.top_k)
-        if config.evalue:
+        if hists is not None:
             model = stats.fit_evalue_model_hist(hists_all[row], bin_logl)
             stats.attach_evalues(out[p], model, packed.lengths)
-    return out, padded_rows
 
 
 def _search_ladder_batch(packed: PackedDb, queries, config: SearchConfig,
@@ -521,6 +562,47 @@ def _chunk_scorer(config: SearchConfig):
     return dispatch
 
 
+def score_db_streaming(packed: PackedDb, query: FastaRecord,
+                       config: SearchConfig | None = None,
+                       window_tiles: int | None = None,
+                       max_in_flight: int | None = None,
+                       device=None) -> np.ndarray:
+    """score_db for a DB too large to live on the device: the windows of
+    models/stream.stream_windows (read out of core, at most max_in_flight
+    on the device), each scored by one launch of kernel 1 (score_tiles) or,
+    past max_query_pad() padded rows, of kernel 2 per query tile
+    (score_tiles_long). Each window's scores are copied into one host
+    (n_rows, V) array without a wait; the device is synchronised once.
+    window_tiles / max_in_flight default to the config's.
+
+    Returns (n_seqs,) int32 scores in sorted-db order."""
+    config = config or SearchConfig()
+    window_tiles = (window_tiles if window_tiles is not None
+                    else config.window_tiles)
+    max_in_flight = (max_in_flight if max_in_flight is not None
+                     else config.max_in_flight)
+    if window_tiles <= 0:
+        raise ValueError("window_tiles must be positive")
+    if max_in_flight <= 0:
+        raise ValueError("max_in_flight must be positive")
+    check_supported(config)
+    dev = resolve_device(device)
+    qp = torch.from_numpy(build_query_profile(
+        query.codes, config.matrix, config.m_multiple)).to(dev)
+    mode = select_mode(qp.shape[1])
+    layout = stream_layout(packed)
+    host = torch.zeros((layout["n_rows"], layout["V"]), dtype=torch.int32,
+                       pin_memory=dev.type == "cuda")
+    for tiles, outrow, row_start, g0, n_w in stream_windows(
+            packed, window_tiles, max_in_flight, dev):
+        scores = score_lanes((tiles, outrow, n_w, row_start), qp, mode,
+                             config)
+        host[g0:g0 + n_w].copy_(scores.view(n_w, -1), non_blocking=True)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    return scatter_lane_scores(packed, host.numpy().reshape(-1))
+
+
 def score_db(packed: PackedDb, query: FastaRecord,
              config: SearchConfig | None = None, device=None) -> np.ndarray:
     """All-lane scores for one query, in sorted-db order (n_seqs,) int32:
@@ -528,7 +610,7 @@ def score_db(packed: PackedDb, query: FastaRecord,
     all launched before the one synchronising device-to-host copy. With
     precision='ladder' and at most max_query_pad() padded rows:
     ladder.score_db_adaptive over the resident stream instead (the same
-    scores)."""
+    scores). For a DB that does not fit the device: score_db_streaming."""
     config = config or SearchConfig()
     check_supported(config)
     qp = torch.from_numpy(build_query_profile(
@@ -572,22 +654,50 @@ def top_k_hits(packed: PackedDb, scores: np.ndarray, k: int) -> list:
 
 def search(packed: PackedDb, queries, config: SearchConfig | None = None,
            device=None):
-    """Search a query batch against the resident DB.
+    """Search a query batch against the DB: resident on the device, or
+    streamed through it in windows under config.db_stream — which this
+    sets itself, with a warning, when the resident DB does not fit the
+    device (resident_fits).
 
     Returns (list[QueryResult], SearchMetrics)."""
     config = config or SearchConfig()
     check_supported(config)
+    if not config.db_stream and not resident_fits(packed, device):
+        if config.query_pack:
+            raise ValueError(
+                "this database's resident tile stream does not fit the "
+                "device's free memory, so it must serve through the "
+                "streaming path, which does not support query_pack=True "
+                "— set query_pack=False")
+        if config.precision == "ladder":
+            raise ValueError(
+                "this database's resident tile stream does not fit the "
+                "device's free memory that the ladder's whole-DB tier "
+                "launches need — use precision='adaptive' (identical "
+                "scores via the exact pass)")
+        warnings.warn(
+            "the resident DB does not fit the device's free memory "
+            f"(engine.device_bytes_needed: {device_bytes_needed(packed)} "
+            "bytes); serving via the windowed streaming path (the same "
+            "hits)", stacklevel=2)
+        config = replace(config, db_stream=True)
     timer = PhaseTimer()
     t0 = time.perf_counter()
     with timer.phase("h2d"):             # one-time upload, then cached
-        device_tiles(packed, device)
+        if not config.db_stream:         # (windows upload while scoring)
+            device_tiles(packed, device)
     with timer.phase("score"):
-        hit_lists, padded_rows = search_fused_batch(packed, queries, config,
-                                                    device)
+        if config.db_stream:
+            hit_lists, padded_rows, lane_positions = search_streaming_batch(
+                packed, queries, config, device)
+        else:
+            hit_lists, padded_rows = search_fused_batch(packed, queries,
+                                                        config, device)
+            lane_positions = sum(ch.n_blocks * ch.L * ch.V
+                                 for ch in packed.chunks)
     results = [QueryResult(q.title, q.length, h)
                for q, h in zip(queries, hit_lists)]
     seconds = time.perf_counter() - t0
-    lane_positions = sum(ch.n_blocks * ch.L * ch.V for ch in packed.chunks)
     metrics = SearchMetrics(
         cells=int(packed.total_residues) * sum(q.length for q in queries),
         padded_cells=lane_positions * padded_rows,

@@ -108,12 +108,16 @@ def test_search_precisions_and_unported_postures(tmp_path):
     for prec in ("f32", "int32", "ladder"):
         _compare(pt, pj, [q], precision=prec)
     _compare(pt, pj, [q], evalue=True)
-    for kw in ({"precision": "ladder"}, {"evalue": True}):
+    for kw in ({"precision": "ladder"}, {"evalue": True},
+               {"db_stream": True}, {"db_stream": True, "evalue": True}):
         engine.check_supported(SearchConfig(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        search(pt, [q], SearchConfig(db_stream=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        score_db(pt, q, SearchConfig(db_stream=True), device="cpu")
+    # every posture is ported; streaming refuses what swimm_tpu's does
+    with pytest.raises(ValueError, match="query_pack"):
+        search(pt, [q], SearchConfig(db_stream=True, query_pack=True),
+               device="cpu")
+    with pytest.raises(ValueError, match="ladder"):
+        score_db(pt, q, SearchConfig(db_stream=True, precision="ladder"),
+                 device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         search(pt, [q], SearchConfig(precision="f16"), device="cpu")
 
@@ -147,6 +151,7 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
     # machine busy with other test workers can take minutes.
     code = ("import sys, swimm_tpu_torch, swimm_tpu_torch.cli, "
             "swimm_tpu_torch.models.engine, swimm_tpu_torch.models.qpack, "
+            "swimm_tpu_torch.models.stream, "
             "swimm_tpu_torch.ops.scorer, swimm_tpu_torch.ops.longquery, "
             "swimm_tpu_torch.ops.ladder, swimm_tpu_torch.utils.stats, "
             "swimm_tpu_torch.ops._build\n"
