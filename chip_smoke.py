@@ -87,6 +87,24 @@ launch counts added to the kernels line (kernels 1 and 2):
  15. the 5,000-aa query streamed (kernel 2 per query tile per window);
  16. score_db_streaming for query 0 and the 5,000-aa query, equal to
      score_db's vectors; no streaming phase uploads the resident DB.
+Then serving (server.py), before phase 8, each step's launches counted
+exactly and apart from the kernels line:
+ 17. a TCP line-protocol server over the phase-3 DB, warmed, with no second
+     upload of the resident DB: the 20 queries as 20 one-query requests
+     from four client threads (coalesced by the Batcher; hits equal phase
+     3's; search dispatches printed; the same traffic again under
+     torch.profiler, and three times over with the SM clock and power
+     sampled beside three back-to-back searches of the 20), 10 sequential
+     one-query requests
+     (p50 and max latency), top_k 4 and 100 equal to the prefix of a
+     direct search, align and format "m8" for 2 queries at top 2; an HTTP
+     server: the 5,000-aa query (kernel 2) equal to phase 4, GET /health
+     (timed before and after it) and /info; a streaming server (db_stream=True) on the memmapped DB of
+     phases 13-16 equal to the resident hits; the C oracle (ops/cref.py,
+     --selfcheck's) over every hit of the 20; one `python -m
+     swimm_tpu_torch serve --warm 448` stdio subprocess (two requests equal
+     to phase 3, a shutdown, exit 0) and one `info` subprocess.
+Phase 3 packs the DB through build_db's native route (csrc/swpack.c).
 
 Imports nothing of JAX or of the swimm_tpu package.
 """
@@ -669,6 +687,37 @@ def device_breakdown(fn) -> dict:
             "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms}
 
 
+def sampled(fn):
+    """(fn(), the card's SM clock and power draw while it ran): nvidia-smi
+    polled on a thread, one reading after another, until fn returns."""
+    import threading
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            row = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split(",")
+            readings.append((float(row[0]), float(row[1])))
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        res = fn()
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    if not readings:
+        return res, {"sm_mhz": "not measured", "power_w": "not measured",
+                     "readings": 0}
+    return res, {"sm_mhz": float(np.mean([r[0] for r in readings])),
+                 "sm_mhz_min": min(r[0] for r in readings),
+                 "power_w": float(np.mean([r[1] for r in readings])),
+                 "power_w_max": max(r[1] for r in readings),
+                 "readings": len(readings)}
+
+
 def instruction_rate() -> float:
     """The card's peak thread-instruction rate: SMs x 128 per clock x max
     SM clock."""
@@ -1095,6 +1144,291 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     if spacked in engine._DEVICE_TILE_CACHE:
         raise AssertionError("a streaming phase uploaded the resident DB")
     out["phases_s"] = phases
+    out["spacked"] = spacked          # phase 17's streaming server
+    return out
+
+
+def serving_paths(db_dir, packed, spacked, queries, results, long_q,
+                  long_res, n_win, config, counted) -> dict:
+    """Phase 17, serving (server.py) on the phase-3 DB, which is resident
+    already: the server must not upload it again. TCP line protocol (20
+    one-query requests from four client threads, coalesced by the
+    Batcher; 10 sequential requests for latency; top_k 4 and 100; align
+    and m8), HTTP (the 5,000-aa query, /health, /info), a streaming
+    server on the memmapped DB of phases 13-16, the C oracle over every
+    hit of the 20 (--selfcheck's), and one `serve` stdio subprocess and
+    one `info` subprocess. Each step's launches are counted apart from
+    the main paths and checked exactly. Returns the numbers and the
+    phase time."""
+    import socket
+    import threading
+    import urllib.request
+    from dataclasses import replace
+
+    from swimm_tpu_torch.alphabet import decode
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.models import engine
+    from swimm_tpu_torch.models.engine import search
+    from swimm_tpu_torch.ops import cref, longquery
+    from swimm_tpu_torch.server import (SearchServer, make_http_server,
+                                        make_socket_server)
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    repo = Path(__file__).resolve().parent
+    resident = engine._DEVICE_TILE_CACHE[packed]["cuda"]
+    mem0 = torch.cuda.memory_allocated()
+
+    def qreq(q, **extra):
+        return {"queries": [{"title": q.title, "seq": decode(q.codes)}],
+                **extra}
+
+    def hits_of(r):
+        return [(h["rank"], h["score"], h["title"]) for h in r["hits"]]
+
+    def want(r):
+        return [(h.rank, h.score, h.title) for h in r.hits]
+
+    def step(name, fn, k1, k2=0):
+        res, seen = counted(fn, main=False)
+        exp = dict.fromkeys(seen, 0)
+        exp.update(sw_ragged_kernel=k1, sw_ragged_qtile_kernel=k2)
+        if seen != exp:
+            raise AssertionError(f"serving {name}: expected launches {exp}, "
+                                 f"got {seen}")
+        out["launches"][name] = seen
+        return res
+
+    def lines(port, reqs, lat=None):
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as c:
+            f = c.makefile("rw", encoding="utf-8")
+            got = []
+            for r in reqs:
+                t = time.perf_counter()
+                f.write(json.dumps(r) + "\n")
+                f.flush()
+                got.append(json.loads(f.readline()))
+                if lat is not None:
+                    lat.append(time.perf_counter() - t)
+                if "error" in got[-1]:
+                    raise AssertionError(f"server error: {got[-1]}")
+            return got
+
+    # ---- TCP line protocol over the resident DB ----
+    Server, Handler, srv, batcher = make_socket_server(packed, config)
+    warm_s = srv._warm([448])
+    tcp = Server(("127.0.0.1", 0), Handler)
+    port = tcp.server_address[1]
+    th = threading.Thread(target=tcp.serve_forever,
+                          kwargs={"poll_interval": 0.05}, daemon=True)
+    th.start()
+    try:
+        # 20 one-query requests from four client threads, five each
+        got = [None] * N_QUERIES
+        errors = []
+
+        def client(c):
+            try:
+                idx = list(range(c, N_QUERIES, 4))
+                for i, r in zip(idx, lines(port, [qreq(queries[i])
+                                                  for i in idx])):
+                    got[i] = r
+            except Exception as e:   # re-raised below, on this thread
+                errors.append(e)
+
+        def twenty():
+            ts = [threading.Thread(target=client, args=(c,))
+                  for c in range(4)]
+            t = time.perf_counter()
+            for x in ts:
+                x.start()
+            for x in ts:
+                x.join(timeout=300)
+            if errors or any(x.is_alive() for x in ts):
+                raise AssertionError(f"a client failed: {errors}")
+            return time.perf_counter() - t
+
+        d0 = batcher.n_dispatches
+        wall20 = step("tcp_20_requests_4_clients", twenty, N_QUERIES)
+        n_disp = batcher.n_dispatches - d0
+        for i, r in enumerate(got):
+            if hits_of(r["results"][0]) != want(results[i]):
+                raise AssertionError(f"served query {i} differs from the "
+                                     "phase-3 search")
+        out["tcp_20"] = {"wall_s": wall20, "dispatches": n_disp,
+                         "requests_per_s": N_QUERIES / wall20}
+        note(f"serving: {N_QUERIES} one-query requests from 4 clients in "
+             f"{wall20:.3f} s, {n_disp} search dispatches; every response "
+             "equals the phase-3 hits")
+        # the same traffic again under torch.profiler: the device's
+        # kernel time and idle share while serving (launches not counted)
+        got = [None] * N_QUERIES
+        out["tcp_20_profiled"] = device_breakdown(twenty)
+        if [hits_of(r["results"][0]) for r in got] != [want(r)
+                                                       for r in results]:
+            raise AssertionError("profiled serving run differs")
+        note(f"serving, the 20 requests under torch.profiler: "
+             f"{out['tcp_20_profiled']}")
+        # the SM clock and power draw while serving (idle gaps between
+        # dispatches) against the same 20 searched back to back, each
+        # three times over
+        _, back = sampled(lambda: [search(packed, queries, config)
+                                   for _ in range(3)])
+        got = [None] * N_QUERIES
+        _, served = sampled(lambda: [twenty() for _ in range(3)])
+        if [hits_of(r["results"][0]) for r in got] != [want(r)
+                                                       for r in results]:
+            raise AssertionError("sampled serving run differs")
+        out["clocks"] = {"back_to_back": back, "serving": served}
+        note(f"serving: SM clock and power, back to back {back}, while "
+             f"serving {served}")
+
+        # 10 sequential one-query requests: latency
+        lat = []
+        seq = step("tcp_10_sequential", lambda: lines(
+            port, [qreq(queries[i % N_QUERIES]) for i in range(10)], lat), 10)
+        for i, r in enumerate(seq):
+            if hits_of(r["results"][0]) != want(results[i % N_QUERIES]):
+                raise AssertionError(f"sequential request {i} differs")
+        out["latency_s"] = {"p50": float(np.median(lat)), "max": max(lat),
+                            "all": lat}
+        note(f"serving: 10 sequential one-query requests, latency p50 "
+             f"{np.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms")
+
+        # top_k 4 and 100 against a direct search at 100
+        direct, _ = search(packed, queries[:1], replace(config, top_k=100))
+        tk = step("tcp_top_k_4_100", lambda: lines(port, [
+            qreq(queries[0], top_k=4), qreq(queries[0], top_k=100)]), 2)
+        for r, k in zip(tk, (4, 100)):
+            if hits_of(r["results"][0]) != want(direct[0])[:k]:
+                raise AssertionError(f"top_k {k} is not the prefix of a "
+                                     "direct search at 100")
+
+        # align and m8 for the two shortest queries at top 2
+        two = sorted(range(N_QUERIES), key=lambda i: queries[i].length)[:2]
+        pair = {"queries": [qreq(queries[i])["queries"][0] for i in two],
+                "top_k": 2}
+        al, m8 = step("tcp_align_m8", lambda: lines(port, [
+            dict(pair, align=True), dict(pair, format="m8")]), 4)
+        for r, i in zip(al["results"], two):
+            if hits_of(r) != want(results[i])[:2] or not all(
+                    "alignment" in h for h in r["hits"]):
+                raise AssertionError("align response differs")
+        if len(m8["m8"]) != 4 or any(len(x.split("\t")) != 12
+                                     for x in m8["m8"]):
+            raise AssertionError(f"m8 rows: {m8['m8']}")
+        out["align_m8_ok"] = True
+    finally:
+        tcp.shutdown()
+        tcp.server_close()
+        batcher.stop()
+    th.join(timeout=10)
+
+    # ---- HTTP: the 5,000-aa query (kernel 2), /health, /info ----
+    Server, Handler, hsrv, hbatcher = make_http_server(packed, config)
+    httpd = Server(("127.0.0.1", 0), Handler)
+    hth = threading.Thread(target=httpd.serve_forever,
+                           kwargs={"poll_interval": 0.05}, daemon=True)
+    hth.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def post():
+            rq = urllib.request.Request(
+                base + "/search", data=json.dumps(qreq(long_q)).encode(),
+                headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                return r.status, json.loads(r.read()), time.perf_counter() - t
+
+        def health():
+            t = time.perf_counter()
+            with urllib.request.urlopen(base + "/health", timeout=30) as r:
+                if json.loads(r.read()) != {"ok": True}:
+                    raise AssertionError("/health")
+            return time.perf_counter() - t
+
+        n_qt = -(-engine._m_pad(long_q.length, config.m_multiple)
+                 // longquery.LONG_TILE_M)
+        health_s = [health()]             # the server's first response
+        code, resp, long_s = step("http_long_5000", post, 0, n_qt)
+        if code != 200 or hits_of(resp["results"][0]) != want(long_res[0]):
+            raise AssertionError("HTTP 5,000-aa query differs from phase 4")
+        health_s += [health(), health()]
+        out["http_health_s"] = health_s
+        with urllib.request.urlopen(base + "/info", timeout=30) as r:
+            info = json.loads(r.read())["info"]
+        if info["n_seqs"] != packed.n_seqs or info["device"] != "cuda":
+            raise AssertionError(f"/info: {info}")
+        out["http_long5000_s"] = long_s
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        hbatcher.stop()
+    hth.join(timeout=10)
+    if engine._DEVICE_TILE_CACHE[packed]["cuda"] is not resident:
+        raise AssertionError("the servers uploaded the resident DB again")
+    grown = torch.cuda.memory_allocated() - mem0
+    if grown >= resident[0].numel():
+        raise AssertionError(f"device memory grew by {grown} bytes while "
+                             "serving: a second upload")
+
+    # ---- a streaming server on the memmapped DB of phases 13-16 ----
+    ssrv = SearchServer(spacked, replace(config, db_stream=True))
+    every = {"queries": [qreq(q)["queries"][0] for q in queries]}
+    t = time.perf_counter()
+    sresp = step("stream_server_20", lambda: ssrv.handle(every),
+                 n_win * N_QUERIES)
+    out["stream_server_20_s"] = time.perf_counter() - t
+    if "error" in sresp or [hits_of(r) for r in sresp["results"]] != [
+            want(r) for r in results]:
+        raise AssertionError("the streaming server differs from resident")
+    if spacked in engine._DEVICE_TILE_CACHE:
+        raise AssertionError("the streaming server uploaded the DB")
+
+    # ---- --selfcheck's C oracle over every hit of the 20 ----
+    sub = get_matrix(config.matrix)
+    t = time.perf_counter()
+    n_c = 0
+    for q, r in zip(queries, results):
+        exp = cref.sw_score_many(q.codes, [packed.seq_codes(h.sorted_idx)
+                                           for h in r.hits], sub,
+                                 config.gap_open, config.gap_extend)
+        if list(exp) != [h.score for h in r.hits]:
+            raise AssertionError(f"C oracle differs for {q.title}")
+        n_c += len(exp)
+    out["cref_hits"] = n_c
+    out["cref_s"] = time.perf_counter() - t
+
+    # ---- the CLI: a serve stdio subprocess and info ----
+    two_req = [qreq(queries[0], id=0), qreq(queries[1], id=1)]
+    stdin = "\n".join([json.dumps(r) for r in two_req]
+                      + [json.dumps({"cmd": "shutdown"})]) + "\n"
+    t = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "swimm_tpu_torch", "serve", "-d",
+         str(db_dir), "--warm", "448"], input=stdin, capture_output=True,
+        text=True, timeout=300, cwd=repo)
+    out["serve_subprocess_s"] = time.perf_counter() - t
+    if p.returncode != 0:
+        raise AssertionError(f"serve subprocess exit {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    sub_resp = [json.loads(x) for x in p.stdout.splitlines()]
+    if [hits_of(r["results"][0]) for r in sub_resp[:2]] != [
+            want(results[0]), want(results[1])] or sub_resp[2] != {
+            "ok": True, "served": 2}:
+        raise AssertionError(f"serve subprocess answered {p.stdout[:2000]}")
+    note("serving: `python -m swimm_tpu_torch serve --warm 448` stdio "
+         f"subprocess in {out['serve_subprocess_s']:.1f} s: "
+         + " | ".join(x for x in p.stderr.splitlines()
+                      if "serve:" in x)[:600])
+    p = subprocess.run([sys.executable, "-m", "swimm_tpu_torch", "info",
+                        "-d", str(db_dir)], capture_output=True, text=True,
+                       timeout=120, cwd=repo)
+    if p.returncode != 0 or f"sequences       {packed.n_seqs:,}" \
+            not in p.stdout:
+        raise AssertionError(f"info: {p.returncode} {p.stdout} {p.stderr}")
+    note("info -d: " + " | ".join(p.stdout.splitlines()))
+    out.update(warm_s=warm_s, phase_s=time.perf_counter() - t_phase)
+    note(f"serving: {json.dumps(out)}")
     return out
 
 
@@ -1106,6 +1440,7 @@ def main(argv=None) -> int:
               "False); this script measures the port on a GPU only",
               file=sys.stderr)
         return 1
+    from swimm_tpu_torch import _cc
     from swimm_tpu_torch.db import build_db
     from swimm_tpu_torch.fasta import FastaRecord
     from swimm_tpu_torch.models import engine, qpack
@@ -1177,8 +1512,12 @@ def main(argv=None) -> int:
     phases["synth_s"] = time.perf_counter() - t
     note(f"synthetic DB: {N_SEQS} seqs, {n_res} residues")
     t = time.perf_counter()
-    packed = build_db(str(fasta), td / "db", V=128)
+    packed = build_db(str(fasta), td / "db", V=128)   # the native route
     phases["parse_pack_s"] = time.perf_counter() - t
+    if "swpack" not in _cc._LIBS:
+        raise AssertionError("build_db did not take the native packer")
+    note(f"parse + pack (native, csrc/swpack.c): "
+         f"{phases['parse_pack_s']:.2f} s")
     fasta.unlink()
     tiles_np, _, n_rows = packed.flat_tiles()
     note(f"packed: {n_rows} blocks in {len(packed.chunks)} chunks, tile "
@@ -1325,6 +1664,13 @@ def main(argv=None) -> int:
                             long_q, long_res, met, long_met, vec, vec_l,
                             config, counted)
     phases.update(streamed.pop("phases_s"))
+
+    # ---- phase 17: serving, on the resident DB and the memmapped one ----
+    serving = serving_paths(td / "db", packed, streamed.pop("spacked"),
+                            queries, results, long_q, long_res,
+                            streamed["batch20_8192"]["windows"], config,
+                            counted)
+    phases["serving_s"] = serving["phase_s"]
     tmp.cleanup()
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
@@ -1528,6 +1874,7 @@ def main(argv=None) -> int:
         "kernel1_tail": k1_tail,
         "evalue_and_ladder": later,
         "stream": streamed,
+        "serving": serving,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

@@ -14,7 +14,10 @@ csrc/sw_walk_hg.cuh and, for sw_chunk_qtile_kernel, csrc/sw_walk.cuh),
 bit-exact with ``swimm_tpu``. Imports torch and numpy only. Entry points run
 on 'cuda' unless given device='cpu'.
 
-  cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search}
+  cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search,
+                     serve,query,info}
+  server             SearchServer, Batcher, stdio / TCP / HTTP front ends
+  client             the client of a running server (imports no torch)
   models.engine      SearchConfig, search (resident DB, device top-k,
                      device score histograms), score_db (every lane's
                      score, all chunks per launch), score_db_streaming
@@ -32,15 +35,30 @@ on 'cuda' unless given device='cpu'.
                                            is its one-chunk case)
   ops.ladder         the precision ladder on the kernels' ceiling variants
   utils.stats        the E-value fit (a copy of swimm_tpu.utils.stats)
+  ops.traceback      host alignment of the reported hits (--align, m8)
+  ops.cref, native   the C reference scorer (--selfcheck) and the C FASTA
+                     parser and packer, built from csrc/ by _cc
   db / fasta / ...   packed DB format v1, FASTA, matrices, alphabet
 """
 
 __version__ = "0.1.0"
 
-from swimm_tpu_torch.db import build_db, load_db
-from swimm_tpu_torch.fasta import read_fasta
-from swimm_tpu_torch.models.engine import (SearchConfig, score_db,
-                                           score_db_streaming, search)
-
 __all__ = ["build_db", "load_db", "read_fasta", "SearchConfig", "score_db",
            "score_db_streaming", "search"]
+
+
+def __getattr__(name):
+    # lazy re-exports, so that importing a submodule loads no more than it
+    # needs: swimm_tpu_torch.client and the CLI's query branch run without
+    # torch
+    if name in ("build_db", "load_db"):
+        from swimm_tpu_torch import db
+        return getattr(db, name)
+    if name == "read_fasta":
+        from swimm_tpu_torch.fasta import read_fasta
+        return read_fasta
+    if name in ("SearchConfig", "score_db", "score_db_streaming", "search"):
+        from swimm_tpu_torch.models import engine
+        return getattr(engine, name)
+    raise AttributeError(
+        f"module 'swimm_tpu_torch' has no attribute {name!r}")

@@ -1,15 +1,21 @@
-"""Command line of the PyTorch/CUDA port (counterpart of swimm_tpu/cli.py's
-synth, preprocess and search subcommands).
+"""Command line of the PyTorch/CUDA port (counterpart of swimm_tpu/cli.py).
 
     python -m swimm_tpu_torch synth -o db.fasta -n 10000
     python -m swimm_tpu_torch preprocess -i db.fasta -o db_packed
+    python -m swimm_tpu_torch info -d db_packed
     python -m swimm_tpu_torch search -d db_packed -q q.fasta \\
         -s BLOSUM62 -g 10 -e 2 -r 16 [--precision ladder] [--query-pack] \\
-        [--evalue [--max-evalue E]] [--device cpu] [--json] \\
+        [--evalue [--max-evalue E]] [--device cpu] \\
+        [--json | --format {table,json,m8}] [--align] [--selfcheck] \\
+        [--profile-dir DIR] \\
         [--stream [--window-tiles N] [--max-in-flight N] \\
                   [--stream-scores {auto,buffer,candidates}]]
+    python -m swimm_tpu_torch serve -d db_packed [--device cpu] \\
+        [--warm 144,448] [--listen HOST:PORT [--http]] ...
+    python -m swimm_tpu_torch query -q q.fasta --server HOST:PORT
 
-search runs on the CUDA device unless --device cpu is given.
+search and serve run on the CUDA device unless --device cpu is given; with
+no card they exit 2. query is a client only: it imports no torch.
 """
 
 from __future__ import annotations
@@ -17,6 +23,20 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _add_scoring_flags(p):
+    p.add_argument("-s", "--matrix", default="BLOSUM62",
+                   help="substitution matrix (BLOSUM45/50/62/80/90, "
+                        "PAM30/70/250)")
+    p.add_argument("-g", "--gap-open", type=int, default=10)
+    p.add_argument("-e", "--gap-extend", type=int, default=2)
+
+
+def _add_device_flag(p):
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch scorers)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,11 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     se = sub.add_parser("search", help="search queries against a packed DB")
     se.add_argument("-d", "--db", required=True, help="packed DB directory")
     se.add_argument("-q", "--query", required=True, help="query FASTA")
-    se.add_argument("-s", "--matrix", default="BLOSUM62",
-                    help="substitution matrix (BLOSUM45/50/62/80/90, "
-                         "PAM30/70/250)")
-    se.add_argument("-g", "--gap-open", type=int, default=10)
-    se.add_argument("-e", "--gap-extend", type=int, default=2)
+    _add_scoring_flags(se)
     se.add_argument("-r", "--top-k", type=int, default=16)
     se.add_argument("--precision",
                     choices=["adaptive", "ladder", "f32", "int32"],
@@ -74,9 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "and query), 'candidates' merges per-window top-k "
                          "on the host; 'auto' (default) picks by buffer "
                          "size")
-    se.add_argument("--device", default=None,
-                    help="torch device (default cuda; 'cpu' runs the plain "
-                         "PyTorch scorers)")
+    _add_device_flag(se)
     se.add_argument("--evalue", action="store_true",
                     help="attach empirical E-values to hits, fitted from "
                          "this search's own score distribution "
@@ -86,7 +100,100 @@ def build_parser() -> argparse.ArgumentParser:
                     help="report only hits with E-value <= this bound "
                          "(requires --evalue; ranks renumbered after the "
                          "filter)")
+    se.add_argument("--selfcheck", action="store_true",
+                    help="rescore every reported hit with the C reference "
+                         "scorer (csrc/swref.c) and fail on any mismatch")
+    se.add_argument("--align", action="store_true",
+                    help="host traceback: print a BLAST-style alignment "
+                         "for every reported hit")
     se.add_argument("--json", action="store_true", help="JSON output")
+    se.add_argument("--format", choices=["table", "json", "m8"],
+                    default=None,
+                    help="output format: 'table' (default), 'json' (same "
+                         "as --json), 'm8' (BLAST tabular, 12 "
+                         "tab-separated columns per hit; runs the host "
+                         "traceback per hit like --align and implies "
+                         "--evalue)")
+    se.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the search "
+                         "(Chrome trace JSON; CPU and, on a card, CUDA "
+                         "activity) into this directory")
+
+    sv = sub.add_parser(
+        "serve",
+        help="persistent search server: load the DB once, answer "
+             "newline-JSON requests on stdin, TCP or HTTP (server.py)")
+    sv.add_argument("-d", "--db", required=True, help="packed DB directory")
+    _add_scoring_flags(sv)
+    sv.add_argument("-r", "--top-k", type=int, default=16,
+                    help="default hits per query (requests may override)")
+    sv.add_argument("--precision",
+                    choices=["adaptive", "ladder", "f32", "int32"],
+                    default="adaptive")
+    sv.add_argument("--stream", action="store_true",
+                    help="serve through the windowed streaming posture "
+                         "(databases larger than device memory)")
+    sv.add_argument("--evalue", action="store_true",
+                    help="attach E-values + bit scores to every hit")
+    _add_device_flag(sv)
+    sv.add_argument("--warm", default=None,
+                    help="comma-separated query lengths to warm at "
+                         "start-up (e.g. 144,500,1000): builds the "
+                         "kernels, uploads the DB and runs a throwaway "
+                         "search of each, so the first request runs at "
+                         "steady-state latency")
+    sv.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="serve the same newline-JSON protocol over TCP "
+                         "instead of stdin/stdout (PORT 0 picks a free "
+                         "port; the bound address is logged to stderr)")
+    sv.add_argument("--http", action="store_true",
+                    help="with --listen: serve HTTP instead of the line "
+                         "protocol (POST /search with the same request "
+                         "JSON; GET /health, /info; stop with SIGTERM)")
+    sv.add_argument("--max-batch-queries", type=int, default=64,
+                    help="TCP mode: cap on queries coalesced into one "
+                         "search (queued requests past the cap wait for "
+                         "the next one)")
+    sv.add_argument("--max-top-k", type=int, default=None,
+                    help="ceiling on per-request top_k (default 1024); "
+                         "a top_k above the default is searched at the "
+                         "next power of two and truncated")
+    sv.add_argument("--max-query-len", type=int, default=None,
+                    metavar="AA",
+                    help="reject queries longer than this (default: "
+                         "unlimited)")
+    sv.add_argument("--request-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="TCP/HTTP mode: bound how long a request may "
+                         "wait; expired requests get an error_kind "
+                         "'timeout' reply (HTTP 504). Default: wait "
+                         "forever")
+    sv.add_argument("--allow-remote-shutdown", action="store_true",
+                    help="TCP line mode: accept {\"cmd\": \"shutdown\"} "
+                         "from non-loopback peers (default: loopback "
+                         "only)")
+
+    qy = sub.add_parser(
+        "query",
+        help="send a query FASTA to a running `serve --listen` server and "
+             "print the results (a client only: no torch, no card)")
+    qy.add_argument("-q", "--query", default=None,
+                    help="query FASTA (gzip transparently supported); "
+                         "required unless --cmd is given")
+    qy.add_argument("--cmd", choices=["ping", "info"], default=None,
+                    help="send a server command instead of a search")
+    qy.add_argument("--server", required=True, metavar="HOST:PORT")
+    qy.add_argument("-r", "--top-k", type=int, default=None,
+                    help="per-request top-k (server default otherwise)")
+    qy.add_argument("--align", action="store_true",
+                    help="request traceback alignment blocks per hit")
+    qy.add_argument("--format", choices=["table", "json", "m8"],
+                    default="table")
+    qy.add_argument("--timeout", type=float, default=600.0,
+                    help="socket timeout in seconds")
+
+    info = sub.add_parser("info", help="describe a packed DB")
+    info.add_argument("-d", "--db", required=True)
 
     sy = sub.add_parser("synth", help="generate a synthetic protein FASTA")
     sy.add_argument("-o", "--output", required=True)
@@ -98,18 +205,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # ValueError is the user-input error (bad matrix, malformed FASTA,
+    # conflicting flags), RuntimeError a device that is missing or failed
+    # and OSError a file: each is one line and exit 2. SWTPU_DEBUG=1
+    # re-raises them with the traceback.
+    import os
+    debug = os.environ.get("SWTPU_DEBUG", "") not in ("", "0", "false",
+                                                      "False", "no")
     try:
         return _run(build_parser().parse_args(argv))
+    except BrokenPipeError:
+        # a pager or head closed stdout: the POSIX exit for SIGPIPE
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 141
     except FileNotFoundError as e:
+        if debug:
+            raise
         print(f"swimm_tpu_torch: error: file not found: {e.filename or e}",
               file=sys.stderr)
         return 2
     except (ValueError, OSError, RuntimeError) as e:
+        if debug:
+            raise
         print(f"swimm_tpu_torch: error: {e}", file=sys.stderr)
         return 2
 
 
 def _run(args) -> int:
+    if args.command == "query":
+        # a client only: keep this branch above anything that imports torch
+        from swimm_tpu_torch.client import run_query
+        return run_query(args)
+
     if args.command == "preprocess":
         from swimm_tpu_torch.db import build_db
         packed = build_db(args.input, args.output, V=args.lanes,
@@ -130,11 +257,97 @@ def _run(args) -> int:
         print(f"wrote {len(recs)} synthetic sequences to {args.output}")
         return 0
 
+    if args.command == "info":
+        return _info(args)
+    if args.command == "serve":
+        return _serve(args)
+    return _search(args)
+
+
+def _info(args) -> int:
+    """Describe a packed DB from its chunk metadata (no torch, no tile
+    stream built)."""
+    import numpy as np
+
+    from swimm_tpu_torch.db import load_db
+    packed = load_db(args.db)
+    lens = packed.lengths
+    jt, V = 32, packed.manifest["V"]
+    n_tiles = sum(ch.n_blocks * ch.L // jt for ch in packed.chunks)
+    n_rows = sum(ch.n_blocks for ch in packed.chunks)
+    nbytes = n_tiles * jt * V
+    pad_pct = 100 * (nbytes / max(int(packed.total_residues), 1) - 1)
+    print(f"packed DB       {args.db}")
+    print(f"sequences       {packed.n_seqs:,}")
+    print(f"residues        {packed.total_residues:,}")
+    print(f"lengths         min {int(lens.min())} / median "
+          f"{int(np.median(lens))} / max {int(lens.max())}")
+    print(f"chunks          {len(packed.chunks)}  "
+          f"blocks {n_rows}  lanes/block {V}")
+    print(f"tile stream     {n_tiles:,} x {jt} x {V} int8 = "
+          f"{nbytes / 1e6:.1f} MB device ({pad_pct:.1f}% padding)")
+    print(f"format version  {packed.manifest['format_version']}")
+    return 0
+
+
+def _serve(args) -> int:
+    from swimm_tpu_torch.db import load_db
+    from swimm_tpu_torch.models.engine import SearchConfig
+    from swimm_tpu_torch.server import serve_socket, serve_stdio
+    warm = ()
+    if args.warm:
+        try:
+            warm = tuple(int(x) for x in args.warm.split(",") if x)
+        except ValueError:
+            raise ValueError(
+                f"--warm must be comma-separated integer lengths "
+                f"(got {args.warm!r})") from None
+        if any(w <= 0 for w in warm):
+            raise ValueError("--warm lengths must be positive")
+    if args.max_query_len is not None and args.max_query_len <= 0:
+        raise ValueError("--max-query-len must be positive")
+    config = SearchConfig(matrix=args.matrix, gap_open=args.gap_open,
+                          gap_extend=args.gap_extend, top_k=args.top_k,
+                          precision=args.precision, db_stream=args.stream,
+                          evalue=args.evalue)
+    if args.listen is not None:
+        host, sep, port = args.listen.rpartition(":")
+        if not sep or not port.isdigit():
+            raise ValueError(
+                f"--listen must be HOST:PORT (got {args.listen!r})")
+        if args.max_batch_queries <= 0:
+            raise ValueError("--max-batch-queries must be positive")
+        if args.request_timeout is not None and args.request_timeout <= 0:
+            raise ValueError("--request-timeout must be positive")
+        return serve_socket(load_db(args.db), config, host or "127.0.0.1",
+                            int(port), warm_lengths=warm,
+                            max_batch_queries=args.max_batch_queries,
+                            http=args.http, max_top_k=args.max_top_k,
+                            allow_remote_shutdown=args.allow_remote_shutdown,
+                            request_timeout=args.request_timeout,
+                            max_query_len=args.max_query_len,
+                            device=args.device)
+    if args.http:
+        raise ValueError("--http requires --listen HOST:PORT")
+    if args.allow_remote_shutdown:
+        raise ValueError("--allow-remote-shutdown requires --listen "
+                         "(stdio has no remote peers)")
+    if args.request_timeout is not None:
+        raise ValueError("--request-timeout requires --listen "
+                         "(stdio serves one request at a time)")
+    return serve_stdio(load_db(args.db), config, warm_lengths=warm,
+                       max_top_k=args.max_top_k,
+                       max_query_len=args.max_query_len, device=args.device)
+
+
+def _search(args) -> int:
+    import contextlib
     from dataclasses import replace
 
     from swimm_tpu_torch.db import load_db
     from swimm_tpu_torch.fasta import read_fasta
-    from swimm_tpu_torch.models.engine import SearchConfig, search
+    from swimm_tpu_torch.models.engine import (SearchConfig, resolve_device,
+                                               search)
 
     if args.stream and args.query_pack:
         raise ValueError(
@@ -153,6 +366,22 @@ def _run(args) -> int:
         raise ValueError(
             "--evalue runs per-query statistics; it does not combine with "
             "--query-pack — drop one of the two flags")
+    fmt = args.format
+    if fmt is None:
+        fmt = "json" if args.json else "table"
+    elif args.json and fmt != "json":
+        raise ValueError(f"--json conflicts with --format {fmt} — pick one")
+    if fmt == "m8":
+        if args.align:
+            raise ValueError(
+                "--format m8 is a fixed 12-column tabular format; "
+                "--align's alignment blocks do not apply — drop --align "
+                "(m8 already includes alignment geometry)")
+        if args.query_pack:
+            raise ValueError(
+                "--format m8 computes E-values (implied --evalue), which "
+                "do not combine with --query-pack — drop --query-pack")
+        args.evalue = True   # the evalue/bitscore columns
     if args.max_evalue is not None:
         if not args.evalue:
             raise ValueError(
@@ -169,16 +398,69 @@ def _run(args) -> int:
                           precision=args.precision,
                           query_pack=args.query_pack, evalue=args.evalue,
                           db_stream=args.stream, **stream_kw)
-    results, metrics = search(load_db(args.db), read_fasta(args.query),
-                              config, device=args.device)
+    packed = load_db(args.db)
+    queries = read_fasta(args.query)
+    prof = contextlib.nullcontext()
+    if args.profile_dir:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU]
+        if resolve_device(args.device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts, on_trace_ready=(
+            tensorboard_trace_handler(args.profile_dir)))
+    with prof:
+        results, metrics = search(packed, queries, config,
+                                  device=args.device)
     if args.max_evalue is not None:
         # a cutoff on the reported list only (scores and the fitted model
         # are untouched); ranks renumbered so the table stays 1..n
         for r in results:
             r.hits = [replace(h, rank=i + 1) for i, h in enumerate(
                 h2 for h2 in r.hits if h2.evalue <= args.max_evalue)]
-    if args.json:
-        print(json.dumps({
+    if args.selfcheck:
+        from swimm_tpu_torch.matrices import get_matrix
+        from swimm_tpu_torch.ops import cref
+        sub = get_matrix(args.matrix)
+        n_checked = 0
+        for q, r in zip(queries, results):
+            seqs = [packed.seq_codes(h.sorted_idx) for h in r.hits]
+            exp = cref.sw_score_many(q.codes, seqs, sub, args.gap_open,
+                                     args.gap_extend)
+            got = [h.score for h in r.hits]
+            if list(exp) != got:
+                raise AssertionError(
+                    f"selfcheck FAILED for {r.query_title!r}: device {got} "
+                    f"vs C oracle {list(exp)}")
+            n_checked += len(got)
+        print(f"selfcheck: PASS ({n_checked} hit scores verified against "
+              "the C reference scorer)", file=sys.stderr)
+    aligns = None
+    if args.align or fmt == "m8":
+        from swimm_tpu_torch.ops.traceback import sw_align
+        aligns = []
+        for q, r in zip(queries, results):
+            row = []
+            for h in r.hits:
+                a = sw_align(q.codes, packed.seq_codes(h.sorted_idx),
+                             matrix=args.matrix, gap_open=args.gap_open,
+                             gap_extend=args.gap_extend)
+                if a.score != h.score:   # a probe from kernel to traceback
+                    raise AssertionError(
+                        f"traceback score {a.score} != device hit score "
+                        f"{h.score} for {h.title!r}")
+                row.append(a)
+            aligns.append(row)
+    if fmt == "m8":
+        # pure TSV on stdout; the run summary to stderr
+        from swimm_tpu_torch.formats import m8_rows
+        for qi, r in enumerate(results):
+            for line in m8_rows(r, aligns[qi]):
+                print(line)
+        print(f"time: {metrics.seconds:.3f}s  GCUPS: {metrics.gcups:.2f}  "
+              f"seqs/s: {metrics.seqs_per_sec:.0f}", file=sys.stderr)
+    elif fmt == "json":
+        out = {
             "results": [{"query": r.query_title,
                          "hits": [{"rank": h.rank, "score": h.score,
                                    "title": h.title,
@@ -187,10 +469,24 @@ def _run(args) -> int:
                                   for h in r.hits]}
                         for r in results],
             "metrics": json.loads(metrics.to_json()),
-        }, indent=1))
+        }
+        if aligns is not None:
+            for robj, arow in zip(out["results"], aligns):
+                for hobj, a in zip(robj["hits"], arow):
+                    hobj["alignment"] = {
+                        "q_range": [a.q_start + 1, a.q_end],
+                        "d_range": [a.d_start + 1, a.d_end],
+                        "identity": a.n_identity, "length": a.length,
+                        "gaps": a.n_gaps, "q_aln": a.q_aln, "d_aln": a.d_aln,
+                    }
+        print(json.dumps(out, indent=1))
     else:
-        for r in results:
+        for qi, r in enumerate(results):
             print(r.as_table())
+            if aligns is not None:
+                for h, a in zip(r.hits, aligns[qi]):
+                    print(f"\n> {h.title}")
+                    print(a.pretty())
             print()
         print(f"time: {metrics.seconds:.3f}s  GCUPS: {metrics.gcups:.2f} "
               f"(padded {metrics.padded_gcups:.2f})  "

@@ -11,8 +11,10 @@ database packed by either package loads in the other:
   array of shape ``(n_blocks, L, V)`` with PAD_CODE fill.
 - A versioned JSON manifest + .npy files enable memmap loading.
 
-Only the Python packer is ported; the native C packer of the JAX package is
-not part of this package.
+``build_db`` packs a plain FASTA path with the native C parser and packer
+(native.py, csrc/swpack.c built by _cc.py) and everything else (records,
+gzip input, no C compiler) with the Python packer; both write the same
+bytes as each other and as ``swimm_tpu.db.build_db``.
 """
 
 from __future__ import annotations
@@ -168,40 +170,101 @@ class PackedDb:
         raise IndexError(sorted_idx)
 
 
-def build_db(records, out_dir, V: int = 128, resume: bool = False) -> PackedDb:
+def build_db(records, out_dir, V: int = 128, resume: bool = False,
+             use_native: bool = True) -> PackedDb:
     """Pack FASTA records (iterable of FastaRecord, or a FASTA path):
     load -> encode -> sort by length ASC -> V-lane blocks -> chunks -> write.
+
+    A plain (not gzip) FASTA path goes through the native parser and packer
+    when it builds here (use_native, the default); the pack is the same
+    bytes either way.
 
     resume=True: if a completed pack of exactly this input and lane width
     already exists at out_dir, reuse it.
     """
     if isinstance(records, (str, os.PathLike)):
+        from swimm_tpu_torch.fasta import is_gzip
+        if use_native and not is_gzip(records):
+            from swimm_tpu_torch import native
+            if native.available():
+                return _build_db_native(records, out_dir, V, resume)
         records = list(iter_fasta(records))
     elif not isinstance(records, (list, tuple)):
         records = list(records)   # iterated twice and indexed by sort order
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    digest = _input_digest((r.codes for r in records),
-                           [r.length for r in records],
-                           (r.title for r in records))
-    if resume and (out / "manifest.json").exists():
-        try:
-            existing = load_db(out)
-        except (OSError, ValueError, KeyError):
-            existing = None       # unreadable pack: rebuild it
-        if (existing is not None and existing.n_seqs == len(records)
-                and existing.manifest["V"] == V
-                and existing.manifest.get("input_digest") == digest):
-            return existing
-
     lengths = np.array([r.length for r in records], dtype=np.int32)
+    digest = _input_digest((r.codes for r in records), lengths,
+                           (r.title for r in records))
+    existing = _reusable(out, len(records), V, digest) if resume else None
+    if existing is not None:
+        return existing
     order = np.argsort(lengths, kind="stable")
-    n = len(records)
-    n_blocks_total = (n + V - 1) // V
 
-    # block b covers sorted positions [b*V, (b+1)*V)
+    def fill(L, base, n_chunk, nb):
+        codes = np.full((nb, L, V), PAD_CODE, dtype=np.int8)
+        for k in range(n_chunk):
+            rec = records[order[base + k]]
+            blk, lane = divmod(k, V)
+            codes[blk, :rec.length, lane] = rec.codes.astype(np.int8)
+        return codes
+
+    return _write_pack(out, V, fill, lengths, order,
+                       [records[i].title for i in order], digest)
+
+
+def _build_db_native(fasta_path, out_dir, V: int, resume: bool) -> PackedDb:
+    """build_db's native route: csrc/swpack.c parses the file and fills
+    each chunk (the same on-disk bytes as the Python packer)."""
+    from swimm_tpu_torch import native
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    codes_blob, offsets, lengths, titles = native.parse_fasta(fasta_path)
+    digest = _input_digest([codes_blob], lengths, titles)
+    existing = _reusable(out, len(lengths), V, digest) if resume else None
+    if existing is not None:
+        return existing
+    order = np.argsort(lengths, kind="stable").astype(np.int64)
+
+    def fill(L, base, n_chunk, nb):
+        codes = native.fill_chunk(codes_blob, offsets, lengths,
+                                  order[base:base + n_chunk], L, V, PAD_CODE)
+        if codes.shape[0] < nb:   # trailing all-pad blocks
+            codes = np.concatenate([codes, np.full(
+                (nb - codes.shape[0], L, V), PAD_CODE, dtype=np.int8)])
+        return codes
+
+    return _write_pack(out, V, fill, lengths, order,
+                       [titles[i] for i in order], digest)
+
+
+def _reusable(out: Path, n: int, V: int, digest: str):
+    """The completed pack at out if it is of exactly this input (sequence
+    count, lane width, input digest), else None."""
+    if not (out / "manifest.json").exists():
+        return None
+    try:
+        existing = load_db(out)
+    except (OSError, ValueError, KeyError):
+        return None               # unreadable pack: rebuild it
+    if (existing.n_seqs == n and existing.manifest["V"] == V
+            and existing.manifest.get("input_digest") == digest):
+        return existing
+    return None
+
+
+def _write_pack(out: Path, V: int, fill, lengths, order, sorted_titles,
+                digest: str) -> PackedDb:
+    """Write the chunks, the sorted lengths, orig_index, titles and the
+    manifest of n = len(order) sequences. Block b covers sorted positions
+    [b*V, (b+1)*V); consecutive blocks of equal quantized length form a
+    chunk, whose (n_blocks, L, V) int8 codes fill(L, base, n_seqs_chunk,
+    n_blocks) returns."""
+    n = len(order)
+    sorted_lengths = lengths[order].astype(np.int32)
+    n_blocks_total = (n + V - 1) // V
     padded = np.zeros(n_blocks_total * V, dtype=np.int64)
-    padded[:n] = lengths[order]
+    padded[:n] = sorted_lengths
     block_max = padded.reshape(n_blocks_total, V).max(axis=1)
     block_L = np.array([quantize_len(int(max(x, 1))) for x in block_max],
                        dtype=np.int64)
@@ -209,20 +272,15 @@ def build_db(records, out_dir, V: int = 128, resume: bool = False) -> PackedDb:
     chunks: list[DbChunk] = []
     chunk_descs = []
     b = 0
-    cid = 0
     while b < n_blocks_total:
         L = int(block_L[b])
         e = b
         while e < n_blocks_total and block_L[e] == L:
             e += 1
-        nb = e - b
-        codes = np.full((nb, L, V), PAD_CODE, dtype=np.int8)
-        base = b * V
+        nb, base = e - b, b * V
         n_seqs_chunk = min(e * V, n) - base
-        for k in range(n_seqs_chunk):
-            rec = records[order[base + k]]
-            blk, lane = divmod(k, V)
-            codes[blk, :rec.length, lane] = rec.codes.astype(np.int8)
+        codes = fill(L, base, n_seqs_chunk, nb)
+        cid = len(chunks)
         fname = f"chunk_{cid:04d}.npy"
         np.save(out / fname, codes)
         chunk_descs.append({
@@ -230,16 +288,13 @@ def build_db(records, out_dir, V: int = 128, resume: bool = False) -> PackedDb:
             "base": base, "n_seqs": n_seqs_chunk, "file": fname,
         })
         chunks.append(DbChunk(cid, L, V, nb, base, n_seqs_chunk, codes))
-        cid += 1
         b = e
 
-    sorted_lengths = lengths[order].astype(np.int32)
     np.save(out / "lengths.npy", sorted_lengths)
     np.save(out / "orig_index.npy", order.astype(np.int64))
     with open(out / "titles.txt", "w") as fh:
-        for i in order:
-            fh.write(records[i].title.replace("\n", " ") + "\n")
-
+        for t in sorted_titles:
+            fh.write(t.replace("\n", " ") + "\n")
     manifest = {
         "format_version": FORMAT_VERSION,
         "n_seqs": n,
@@ -252,10 +307,8 @@ def build_db(records, out_dir, V: int = 128, resume: bool = False) -> PackedDb:
     }
     with open(out / "manifest.json", "w") as fh:
         json.dump(manifest, fh, indent=1)
-
-    titles = [records[i].title for i in order]
-    return PackedDb(chunks, sorted_lengths, order.astype(np.int64), titles,
-                    manifest)
+    return PackedDb(chunks, sorted_lengths, order.astype(np.int64),
+                    list(sorted_titles), manifest)
 
 
 def load_db(db_dir, mmap: bool = True) -> PackedDb:

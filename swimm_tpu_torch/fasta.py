@@ -7,6 +7,7 @@ Swiss-Prot-scale database (~0.5M sequences) never holds raw text twice.
 
 from __future__ import annotations
 
+import io
 import os
 from dataclasses import dataclass
 from typing import Iterator
@@ -92,6 +93,10 @@ def iter_fasta(path_or_handle) -> Iterator[FastaRecord]:
 
 def read_fasta(path_or_handle) -> list[FastaRecord]:
     return list(iter_fasta(path_or_handle))
+
+
+def parse_fasta_str(text: str) -> list[FastaRecord]:
+    return read_fasta(io.StringIO(text))
 
 
 def write_fasta(path, records, width: int = 60) -> None:

@@ -154,7 +154,10 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.models.stream, "
             "swimm_tpu_torch.ops.scorer, swimm_tpu_torch.ops.longquery, "
             "swimm_tpu_torch.ops.ladder, swimm_tpu_torch.utils.stats, "
-            "swimm_tpu_torch.ops._build\n"
+            "swimm_tpu_torch.ops._build, swimm_tpu_torch.server, "
+            "swimm_tpu_torch.client, swimm_tpu_torch.formats, "
+            "swimm_tpu_torch.native, swimm_tpu_torch._cc, "
+            "swimm_tpu_torch.ops.cref, swimm_tpu_torch.ops.traceback\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
             "or m.startswith('swimm_tpu.'))\n"
