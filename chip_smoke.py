@@ -104,6 +104,26 @@ exactly and apart from the kernels line:
      --selfcheck's) over every hit of the 20; one `python -m
      swimm_tpu_torch serve --warm 448` stdio subprocess (two requests equal
      to phase 3, a shutdown, exit 0) and one `info` subprocess.
+Then distribution (parallel/), before phase 8, on the same DBs, each run
+after a warm-up with its launches counted exactly:
+ 18. (a) sharded_search on make_mesh() (one shard per visible card; no
+     second upload of the resident stream), the 20 queries and the
+     5,000-aa query, hits, ranks, scores and titles equal to phases 3 and
+     4, 20 launches of kernel 1 and 5 of kernel 2 per shard, wall time and
+     real GCUPS beside the resident batch's; (b) 4 virtual shards on the
+     one card (devices=['cuda:0'] * 4) at (4, 1) and (2, 2), split form
+     (merge latency apart), equal hits, launches n_data times the one-shard
+     count, and kernel 1's ms per shard for query 0 beside the whole
+     stream's; (c) kernel 1 on the last shard (the longest blocks, a stream
+     that starts mid-chunk) at m=448 against its plain version; (d)
+     E-values under (a) and (b) equal to phase 9's; (e)
+     search_streaming_sharded on the memmapped DB, 8,192 tiles a span, 4
+     virtual shards, equal hits, peak device memory; (f) a one-rank NCCL
+     group in this process (global_mesh, global_tile_shards, sharded_search
+     with and without E-values through real all_gather_into_tensor and
+     all_reduce calls, counted), destroyed after; (g) one `python -m
+     swimm_tpu_torch search --sharded --topk-per-shard 64` subprocess,
+     exit 0, hits equal phase 3's.
 Phase 3 packs the DB through build_db's native route (csrc/swpack.c).
 
 Imports nothing of JAX or of the swimm_tpu package.
@@ -821,6 +841,7 @@ def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
                                                                 bin_logl)):
             raise AssertionError(f"{q.title}: E-values differ from the fit "
                                  "of the host table")
+    out["e_res"] = e_res                 # phase 18's E-value reference
     out["evalue20"] = {"seconds": e_met.seconds,
                        "plain_seconds": met.seconds,
                        "overhead": e_met.seconds / met.seconds - 1,
@@ -1432,6 +1453,266 @@ def serving_paths(db_dir, packed, spacked, queries, results, long_q,
     return out
 
 
+def sharded_paths(db_dir, packed, spacked, dev_db, queries, results, long_q,
+                  long_res, e_res, met, stream_runs, config, counted,
+                  errs) -> dict:
+    """Phase 18, distribution (parallel/) on the phase-3 DB and queries:
+    (a) sharded_search on make_mesh() (every visible card; one here), the
+    20 queries and the 5,000-aa query; (b) a virtual mesh of 4 shards on
+    the one card at (4, 1) and (2, 2), split form (merge timed apart);
+    (c) kernel 1 on the shard with the longest blocks against its plain
+    version; (d) E-values under (a) and (b); (e) search_streaming_sharded
+    on the memmapped DB at 8,192 tiles a span over 4 virtual shards, peak
+    device memory; (f) a one-rank NCCL group in this process, its real
+    all_gather_into_tensor and all_reduce; (g) one `search --sharded
+    --topk-per-shard 64` CLI subprocess. Every result is held exactly
+    against phases 3, 4 and 9 (hits, ranks, scores, titles, E-values, bit
+    scores); every run after a warm-up with its launches counted exactly
+    ((a), (b), (e), (f) on the kernels line; (d) apart). Nothing is
+    caught. Returns the numbers and phase times."""
+    import socket
+
+    import torch.distributed as dist
+
+    from swimm_tpu_torch.fasta import write_fasta
+    from swimm_tpu_torch.models import stream
+    from swimm_tpu_torch.models.engine import SearchConfig
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import longquery, scorer
+    from swimm_tpu_torch.parallel import distributed
+    from swimm_tpu_torch.parallel.mesh import make_mesh
+    from swimm_tpu_torch.parallel.sharded_search import (build_tile_shards,
+                                                         sharded_search)
+    from swimm_tpu_torch.parallel.sharded_stream import \
+        search_streaming_sharded
+    out, phases = {}, {}
+    m_long = -(-long_q.length // config.m_multiple) * config.m_multiple
+    n_qt = -(-m_long // longquery.LONG_TILE_M)
+    econfig = SearchConfig(top_k=16, evalue=True)
+    qp0 = torch.from_numpy(build_query_profile(
+        queries[0].codes, config.matrix, config.m_multiple)).cuda()
+
+    def key(rs):
+        return [[(h.rank, h.score, h.sorted_idx, h.title, h.evalue, h.bits)
+                 for h in r.hits] for r in rs]
+
+    def run(name, fn, want, k1, k2=0, main=True):
+        """fn() once more after a warm-up, its launches counted exactly and
+        its results equal to want's."""
+        fn()
+        (res, m), seen = counted(fn, main=main)
+        exp = dict.fromkeys(seen, 0)
+        exp.update(sw_ragged_kernel=k1, sw_ragged_qtile_kernel=k2)
+        if seen != exp:
+            raise AssertionError(f"phase 18 {name}: expected launches {exp}, "
+                                 f"got {seen}")
+        if key(res) != key(want):
+            raise AssertionError(f"phase 18 {name}: results differ from the "
+                                 "resident search's")
+        return m, seen
+
+    # ---- (a) + (d): one shard per visible card ----
+    t = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    mesh1 = make_mesh()
+    nd = mesh1.shape["data"]
+    a_met, seen = run("(a) 20 queries", lambda: sharded_search(
+        packed, queries, config, mesh=mesh1), results, N_QUERIES * nd)
+    al_met, _ = run("(a) 5,000 aa", lambda: sharded_search(
+        packed, [long_q], config, mesh=mesh1), long_res, 0, n_qt * nd)
+    ae_met, _ = run("(d) E-values on (a)", lambda: sharded_search(
+        packed, queries, econfig, mesh=mesh1), e_res, N_QUERIES * nd,
+        main=False)
+    grew = torch.cuda.memory_allocated() - mem0
+    if nd == 1 and grew > dev_db[0].numel() // 10:
+        raise AssertionError(f"the one-shard mesh allocated {grew} bytes: "
+                             "the resident stream was uploaded again")
+    out["a"] = {"mesh": mesh1.shape, "seconds": a_met.seconds,
+                "gcups": a_met.gcups, "resident_seconds": met.seconds,
+                "ratio": a_met.seconds / met.seconds, "launches": seen,
+                "long_seconds": al_met.seconds,
+                "evalue_seconds": ae_met.seconds, "bytes_allocated": grew,
+                "timers": a_met.timers}
+    note(f"phase 18 (a) sharded_search on make_mesh() {mesh1.shape}: "
+         f"{a_met.seconds:.3f} s, {a_met.gcups:.1f} real GCUPS (resident "
+         f"{met.seconds:.3f} s, x{a_met.seconds / met.seconds:.3f}), "
+         f"launches {seen}; 5,000 aa {al_met.seconds:.3f} s; (d) E-values "
+         f"{ae_met.seconds:.3f} s; {grew} bytes allocated beside the "
+         "resident stream; hits, ranks, scores, titles and E-values equal "
+         "phases 3, 4 and 9")
+    phases["sharded_a_s"] = time.perf_counter() - t
+
+    # ---- (b) + (d): 4 virtual shards on the one card ----
+    t = time.perf_counter()
+    out["b"] = {}
+    for qa in (1, 2):
+        mesh = make_mesh(devices=["cuda:0"] * 4, query_axis=qa)
+        nd = mesh.shape["data"]
+        b_met, seen = run(f"(b) {mesh.shape}", lambda: sharded_search(
+            packed, queries, config, mesh=mesh, measure_merge=True),
+            results, N_QUERIES * nd)
+        bl_met, _ = run(f"(b) {mesh.shape} 5,000 aa", lambda: sharded_search(
+            packed, [long_q], config, mesh=mesh), long_res, 0, n_qt * nd)
+        be_met, _ = run(f"(d) E-values on {mesh.shape}", lambda:
+                        sharded_search(packed, queries, econfig, mesh=mesh),
+                        e_res, N_QUERIES * nd, main=False)
+        out["b"][f"{nd}x{qa}"] = {
+            "seconds": b_met.seconds, "gcups": b_met.gcups,
+            "resident_seconds": met.seconds, "launches": seen,
+            "merge_s": b_met.timers["merge"], "score_s": b_met.timers["score"],
+            "merge_collectives": b_met.timers["merge_collectives"],
+            "long_seconds": bl_met.seconds, "evalue_seconds": be_met.seconds}
+        note(f"phase 18 (b) 4 virtual shards at {mesh.shape}, split form: "
+             f"{b_met.seconds:.3f} s (score {b_met.timers['score']:.3f} s, "
+             f"merge {b_met.timers['merge'] * 1e3:.3f} ms over "
+             f"{b_met.timers['merge_collectives']}), launches {seen}; "
+             f"5,000 aa {bl_met.seconds:.3f} s; (d) E-values "
+             f"{be_met.seconds:.3f} s; all equal phases 3, 4 and 9")
+    # the shards run one after another on one card: each launch ends on its
+    # own longest block
+    shards = build_tile_shards(packed, make_mesh(devices=["cuda:0"] * 4))
+    shard_ms = [cuda_ms(lambda: scorer.score_tiles(
+        s.tiles, s.outrow, s.n_rows, qp0, 10, 2, row_start=s.row_start))
+        for _, s in sorted(shards["shards"].items())]
+    whole_ms = cuda_ms(lambda: scorer.score_tiles(
+        dev_db[0], dev_db[1], dev_db[2], qp0, 10, 2, row_start=dev_db[3]))
+    out["b"]["query0_kernel_ms_per_shard"] = shard_ms
+    out["b"]["query0_kernel_ms_whole_stream"] = whole_ms
+    out["b"]["shard_tiles"] = [int(s.tiles.shape[0]) for _, s in
+                               sorted(shards["shards"].items())]
+    note(f"kernel 1, query 0 (m={qp0.shape[1]}), per shard of the (4, 1) "
+         f"plan ({out['b']['shard_tiles']} tiles): "
+         f"{[round(x, 3) for x in shard_ms]} ms, sum {sum(shard_ms):.3f} ms "
+         f"against {whole_ms:.3f} ms over the whole stream")
+    phases["sharded_b_s"] = time.perf_counter() - t
+
+    # ---- (c): kernel 1 on the last shard (the longest blocks) vs plain ----
+    t = time.perf_counter()
+    last = shards["shards"][max(shards["shards"])]
+    got = scorer.score_tiles(last.tiles, last.outrow, last.n_rows, qp0, 10,
+                             2, row_start=last.row_start)
+    ref = scorer.score_tiles_ref(last.tiles, last.outrow, last.n_rows, qp0,
+                                 10, 2, row_start=last.row_start)
+    e = max_err(got, ref)
+    errs["sw_ragged_kernel"] = max(errs["sw_ragged_kernel"], e)
+    if e:
+        raise AssertionError(f"sw_ragged_kernel on the last shard differs "
+                             f"from its plain version (max_abs_err={e})")
+    out["c"] = {"tiles": int(last.tiles.shape[0]), "rows": last.n_rows,
+                "m": int(qp0.shape[1]), "max_abs_err": e}
+    note(f"phase 18 (c) sw_ragged_kernel vs plain on the last shard "
+         f"({last.n_rows} blocks, {last.tiles.shape[0]} tiles, a stream "
+         f"that starts mid-chunk, row starts rebased) at m={qp0.shape[1]}: "
+         f"max_abs_err={e}")
+    phases["sharded_c_s"] = time.perf_counter() - t
+
+    # ---- (e): the streamed posture over 4 virtual shards ----
+    t = time.perf_counter()
+    layout = stream.stream_layout(spacked)
+    spans, _ = stream.plan_windows(layout, 8192)
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    scfg = SearchConfig(top_k=16, db_stream=True, window_tiles=8192)
+    search_streaming_sharded(spacked, queries, scfg, mesh=mesh4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (s_res, s_met), seen = counted(lambda: search_streaming_sharded(
+        spacked, queries, scfg, mesh=mesh4))
+    peak = torch.cuda.max_memory_allocated() - base
+    if seen["sw_ragged_kernel"] != len(spans) * N_QUERIES or sum(
+            seen.values()) != len(spans) * N_QUERIES:
+        raise AssertionError(f"phase 18 (e): expected {len(spans)} x "
+                             f"{N_QUERIES} launches, got {seen}")
+    if key(s_res) != key(results):
+        raise AssertionError("phase 18 (e): streamed sharded hits differ "
+                             "from the resident search's")
+    out["e"] = {"spans": len(spans), "seconds": s_met.seconds,
+                "gcups": s_met.gcups, "peak_bytes": peak,
+                "stream_seconds": {k: v["seconds"]
+                                   for k, v in stream_runs.items()},
+                "launches": seen, "timers": s_met.timers}
+    note(f"phase 18 (e) search_streaming_sharded, 4 virtual shards, "
+         f"{len(spans)} spans of <= 8192 tiles: {s_met.seconds:.3f} s "
+         f"(unsharded stream: buffer {stream_runs['buffer']['seconds']:.3f}"
+         f" s, candidates {stream_runs['candidates']['seconds']:.3f} s), "
+         f"peak {peak / 1e6:.1f} MB allocated, launches {seen}; hits equal")
+    phases["sharded_e_s"] = time.perf_counter() - t
+
+    # ---- (f): a one-rank NCCL group in this process ----
+    t = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    calls = {"all_gather_into_tensor": 0, "all_reduce": 0}
+    real = {n: getattr(dist, n) for n in calls}
+
+    def counting(n):
+        def call(*args, **kw):
+            calls[n] += 1
+            return real[n](*args, **kw)
+        return call
+
+    distributed.init(f"127.0.0.1:{port}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        gmesh = distributed.global_mesh()
+        gshards = distributed.global_tile_shards(packed, gmesh)
+        for n in calls:
+            setattr(dist, n, counting(n))
+        f_met, seen = run("(f) NCCL", lambda: sharded_search(
+            packed, queries, config, mesh=gmesh, tile_shards=gshards,
+            measure_merge=True), results, N_QUERIES)
+        fe_met, _ = run("(f) NCCL E-values", lambda: sharded_search(
+            packed, queries, econfig, mesh=gmesh, tile_shards=gshards),
+            e_res, N_QUERIES, main=False)
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+        dist.destroy_process_group()
+    groups = len({-(-q.length // 16) for q in queries})
+    if calls["all_gather_into_tensor"] != 8 * groups or \
+            calls["all_reduce"] != 2 * groups:
+        raise AssertionError(f"phase 18 (f): collectives {calls}, expected "
+                             f"{8 * groups} gathers and {2 * groups} "
+                             "reductions")
+    out["f"] = {"seconds": f_met.seconds, "merge_s": f_met.timers["merge"],
+                "merge_collectives": f_met.timers["merge_collectives"],
+                "evalue_seconds": fe_met.seconds, "launches": seen,
+                "collective_calls": calls}
+    note(f"phase 18 (f) one-rank NCCL group: {f_met.seconds:.3f} s, "
+         f"all_gather merges {f_met.timers['merge_collectives']}, E-values "
+         f"{fe_met.seconds:.3f} s, collectives {calls}; hits and E-values "
+         "equal; process group destroyed")
+    phases["sharded_f_s"] = time.perf_counter() - t
+
+    # ---- (g): one `search --sharded` CLI subprocess ----
+    t = time.perf_counter()
+    qf = Path(db_dir).parent / "q18.fasta"
+    write_fasta(qf, queries)
+    p = subprocess.run(
+        [sys.executable, "-m", "swimm_tpu_torch", "search", "-d",
+         str(db_dir), "-q", str(qf), "--sharded", "--topk-per-shard", "64",
+         "-r", "16", "--format", "json"], capture_output=True, text=True,
+        timeout=300, cwd=Path(__file__).resolve().parent)
+    if p.returncode != 0:
+        raise AssertionError(f"search --sharded exit {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    cli = json.loads(p.stdout)
+    if [[(h["rank"], h["score"], h["title"]) for h in r["hits"]]
+            for r in cli["results"]] != [[(h.rank, h.score, h.title)
+                                         for h in r.hits] for r in results]:
+        raise AssertionError("search --sharded printed other hits")
+    out["g"] = {"subprocess_s": time.perf_counter() - t,
+                "search_seconds": cli["metrics"]["seconds"]}
+    note(f"phase 18 (g) `search --sharded --topk-per-shard 64` subprocess: "
+         f"exit 0 in {out['g']['subprocess_s']:.1f} s (search "
+         f"{out['g']['search_seconds']:.3f} s), hits equal phase 3's")
+    phases["sharded_g_s"] = time.perf_counter() - t
+    out["phases_s"] = phases
+    return out
+
+
 def main(argv=None) -> int:
     kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
                                         else argv)
@@ -1658,6 +1939,7 @@ def main(argv=None) -> int:
     later = later_paths(packed, dev_db, queries, results, long_q, long_res,
                         met, long_met, vec, config, counted)
     phases.update(later.pop("phases_s"))
+    e_res = later.pop("e_res")
 
     # ---- phases 13-16: the streaming posture, on the DB loaded again ----
     streamed = stream_paths(td / "db", packed, dev_db, queries, results,
@@ -1666,11 +1948,19 @@ def main(argv=None) -> int:
     phases.update(streamed.pop("phases_s"))
 
     # ---- phase 17: serving, on the resident DB and the memmapped one ----
-    serving = serving_paths(td / "db", packed, streamed.pop("spacked"),
+    spacked = streamed.pop("spacked")
+    serving = serving_paths(td / "db", packed, spacked,
                             queries, results, long_q, long_res,
                             streamed["batch20_8192"]["windows"], config,
                             counted)
     phases["serving_s"] = serving["phase_s"]
+
+    # ---- phase 18: distribution, on the resident DB and the memmapped one
+    sharded = sharded_paths(td / "db", packed, spacked, dev_db, queries,
+                            results, long_q, long_res, e_res, met,
+                            streamed["batch20_8192"]["runs"], config,
+                            counted, errs)
+    phases.update(sharded.pop("phases_s"))
     tmp.cleanup()
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
@@ -1875,6 +2165,7 @@ def main(argv=None) -> int:
         "evalue_and_ladder": later,
         "stream": streamed,
         "serving": serving,
+        "sharded": sharded,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

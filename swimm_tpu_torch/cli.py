@@ -9,13 +9,16 @@
         [--json | --format {table,json,m8}] [--align] [--selfcheck] \\
         [--profile-dir DIR] \\
         [--stream [--window-tiles N] [--max-in-flight N] \\
-                  [--stream-scores {auto,buffer,candidates}]]
+                  [--stream-scores {auto,buffer,candidates}]] \\
+        [--sharded [--topk-per-shard K] [--query-axis N]]
     python -m swimm_tpu_torch serve -d db_packed [--device cpu] \\
         [--warm 144,448] [--listen HOST:PORT [--http]] ...
     python -m swimm_tpu_torch query -q q.fasta --server HOST:PORT
 
 search and serve run on the CUDA device unless --device cpu is given; with
-no card they exit 2. query is a client only: it imports no torch.
+no card they exit 2. search --sharded splits the DB over every visible card
+(with --device, over that one device). query is a client only: it imports
+no torch.
 """
 
 from __future__ import annotations
@@ -90,12 +93,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "and query), 'candidates' merges per-window top-k "
                          "on the host; 'auto' (default) picks by buffer "
                          "size")
+    se.add_argument("--sharded", action="store_true",
+                    help="data-parallel search over all visible cards "
+                         "(parallel/: the DB split into contiguous block "
+                         "ranges, per-shard top-k merged across devices)")
+    se.add_argument("--topk-per-shard", type=int, default=None,
+                    help="candidates gathered per data shard before the "
+                         "merge (--sharded only; default 256)")
+    se.add_argument("--query-axis", type=int, default=None,
+                    help="mesh 'query' axis size: devices split into a "
+                         "(data, query) grid (--sharded only; default 1)")
     _add_device_flag(se)
     se.add_argument("--evalue", action="store_true",
                     help="attach empirical E-values to hits, fitted from "
                          "this search's own score distribution "
                          "(utils/stats.py; the score histogram is taken on "
-                         "the device)")
+                         "the device, summed over the shards when sharded)")
     se.add_argument("--max-evalue", type=float, default=None,
                     help="report only hits with E-value <= this bound "
                          "(requires --evalue; ranks renumbered after the "
@@ -349,11 +362,23 @@ def _search(args) -> int:
     from swimm_tpu_torch.models.engine import (SearchConfig, resolve_device,
                                                search)
 
+    # swimm_tpu's posture-combination errors, word for word and in its
+    # order: a flag that would be ignored is refused, naming the conflict
+    if args.sharded and args.query_pack:
+        raise ValueError(
+            "--sharded does not support --query-pack: the sharded path "
+            "groups queries by padded length itself — drop --query-pack or "
+            "run without --sharded")
     if args.stream and args.query_pack:
         raise ValueError(
             "--stream does not support --query-pack: the streaming path "
             "batches queries per padded length against each window — drop "
             "one of the two flags")
+    if args.sharded and args.stream_scores is not None:
+        raise ValueError(
+            "--stream-scores does not apply to the sharded posture: sharded "
+            "streaming always merges per-span candidates via the collective "
+            "top-k — drop --stream-scores")
     if not args.stream:
         for flag, on in (("--window-tiles", args.window_tiles is not None),
                          ("--max-in-flight", args.max_in_flight is not None),
@@ -362,6 +387,18 @@ def _search(args) -> int:
                 raise ValueError(
                     f"{flag} only applies to the streaming posture and "
                     f"would be ignored here — add --stream or drop {flag}")
+    if not args.sharded:
+        for flag, on in (("--topk-per-shard", args.topk_per_shard is not None),
+                         ("--query-axis", args.query_axis is not None)):
+            if on:
+                raise ValueError(
+                    f"{flag} only applies to the sharded posture and would "
+                    f"be ignored here — add --sharded or drop {flag}")
+    if args.sharded and args.stream and args.topk_per_shard is not None:
+        raise ValueError(
+            "--sharded --stream does not support --topk-per-shard: the "
+            "streamed super-window path takes top_k candidates per span — "
+            "drop --topk-per-shard")
     if args.evalue and args.query_pack:
         raise ValueError(
             "--evalue runs per-query statistics; it does not combine with "
@@ -410,8 +447,27 @@ def _search(args) -> int:
         prof = profile(activities=acts, on_trace_ready=(
             tensorboard_trace_handler(args.profile_dir)))
     with prof:
-        results, metrics = search(packed, queries, config,
-                                  device=args.device)
+        if args.sharded:
+            from swimm_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(
+                query_axis=(args.query_axis if args.query_axis is not None
+                            else 1),
+                devices=None if args.device in (None, "cuda")
+                else [args.device])
+        if args.sharded and args.stream:
+            from swimm_tpu_torch.parallel.sharded_stream import \
+                search_streaming_sharded
+            results, metrics = search_streaming_sharded(packed, queries,
+                                                        config, mesh=mesh)
+        elif args.sharded:
+            from swimm_tpu_torch.parallel.sharded_search import sharded_search
+            kw = ({"topk_per_shard": args.topk_per_shard}
+                  if args.topk_per_shard is not None else {})
+            results, metrics = sharded_search(packed, queries, config,
+                                              mesh=mesh, **kw)
+        else:
+            results, metrics = search(packed, queries, config,
+                                      device=args.device)
     if args.max_evalue is not None:
         # a cutoff on the reported list only (scores and the fitted model
         # are untouched); ranks renumbered so the table stays 1..n

@@ -254,15 +254,19 @@ class WindowSlots:
         self._closed.set()
 
 
-def iter_windows(packed, window_tiles: int, slots, jt: int = 32):
+def iter_windows(packed, window_tiles: int, slots, jt: int = 32,
+                 spans=None):
     """Yield (slot, win (t1-t0, jt, V) int8, orow (t1-t0,) int32 local
     rows, row_start (n_w+1,) int64 first local tile of each row, g0 global
     first row, n_w rows in window) — windows assembled out of core (host
     memory O(window)), each at its fill: no pad tiles, no trash row. The
     arrays are views of the WindowSlots slot acquired for the window,
-    which the consumer releases. Ends early if the slots are closed."""
+    which the consumer releases. Ends early if the slots are closed.
+    spans: the (g0, g1) windows to read, by default all of plan_windows'
+    (the sharded stream gives each shard device its own)."""
     layout = stream_layout(packed, jt)
-    spans, _ = plan_windows(layout, window_tiles)
+    if spans is None:
+        spans, _ = plan_windows(layout, window_tiles)
     cum = layout["cum"]
     for g0, g1 in spans:
         t0, t1 = int(cum[g0]), int(cum[g1])
@@ -332,11 +336,11 @@ def _prefetch_iter(it, depth: int = 2):
 
 
 def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
-                   jt: int = 32):
+                   jt: int = 32, spans=None):
     """Yield (tiles, outrow, row_start, g0, n_w) on dev for each window of
-    plan_windows, in order, as the kernels take them (n_w rows, row_start
-    local). The consumer must have launched all its work on a window before
-    it asks for the next.
+    plan_windows (or of its subset `spans`), in order, as the kernels take
+    them (n_w rows, row_start local). The consumer must have launched all
+    its work on a window before it asks for the next.
 
     On a card: host slots pinned, max_in_flight + 1 of them; a ring of
     max_in_flight device slots allocated once; each upload on a copy stream
@@ -345,12 +349,12 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
     event, the host never waits on the device here. On the CPU: the
     windows are the host slots themselves."""
     layout = stream_layout(packed, jt)
-    spans, r_cap = plan_windows(layout, window_tiles)
-    wt = effective_window_tiles(layout, spans)
+    plan, r_cap = plan_windows(layout, window_tiles)
+    wt = effective_window_tiles(layout, plan)
     slots = WindowSlots(max_in_flight + 1, wt, jt, layout["V"], r_cap,
                         pin=dev.type == "cuda")
-    feed = _prefetch_iter(iter_windows(packed, window_tiles, slots, jt),
-                          depth=max_in_flight + 1)
+    feed = _prefetch_iter(iter_windows(packed, window_tiles, slots, jt,
+                                       spans), depth=max_in_flight + 1)
     try:
         if dev.type != "cuda":
             for s, win, orow, rs, g0, n_w in feed:
@@ -365,6 +369,10 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
                  torch.empty(wt, dtype=torch.int32, device=dev),
                  torch.empty(r_cap + 1, dtype=torch.int64, device=dev))
                 for _ in range(max_in_flight)]
+        # the ring comes from the allocator's compute-stream pool, which may
+        # hand out a block that launches queued on the compute stream still
+        # use; the copier writes it, so it starts behind them
+        copier.wait_stream(compute)
         read = [None] * max_in_flight   # after the last launches on a slot
         for i, (s, win, _, _, g0, n_w) in enumerate(feed):
             j = i % max_in_flight
@@ -372,7 +380,7 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
             dst = (ring[j][0][:n_t], ring[j][1][:n_t], ring[j][2][:n_w + 1])
             src = (slots.tiles[s][:n_t], slots.orow[s][:n_t],
                    slots.row_start[s][:n_w + 1])
-            with torch.cuda.stream(copier):
+            with torch.cuda.device(dev), torch.cuda.stream(copier):
                 if read[j] is not None:
                     copier.wait_event(read[j])
                 for d, h in zip(dst, src):
@@ -382,8 +390,11 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
             slots.release(s, copied)
             compute.wait_event(copied)
             yield (*dst, g0, n_w)
-            read[j] = torch.cuda.Event()
-            read[j].record(compute)
+            # under the guard, but not across the yield: the consumer's
+            # current device stays its own
+            with torch.cuda.device(dev):
+                read[j] = torch.cuda.Event()
+                read[j].record(compute)
     finally:
         slots.close()
         feed.close()

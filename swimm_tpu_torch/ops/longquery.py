@@ -78,12 +78,13 @@ def score_qtile(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
     T, jt, V = tiles.shape
-    out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
-    err = kernels().sw_ragged_qtile_launch(
-        tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
-        qp_tile.data_ptr(), qp_tile.shape[1], gap_open + gap_extend,
-        gap_extend, hcar.data_ptr(), fcar.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(tiles.device).cuda_stream)
+    with torch.cuda.device(tiles.device):
+        out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
+        err = kernels().sw_ragged_qtile_launch(
+            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+            qp_tile.data_ptr(), qp_tile.shape[1], gap_open + gap_extend,
+            gap_extend, hcar.data_ptr(), fcar.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(tiles.device).cuda_stream)
     raise_on(err, "sw_ragged_qtile_kernel")
     score_qtile.launches += 1
     return out, hcar, fcar
@@ -165,15 +166,16 @@ def score_chunks_qtile(chunks, qp_tile, gap_open: int, gap_extend: int,
         return tuple(list(x) for x in zip(*res))
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    out = torch.empty((table.n_blocks, table.V), dtype=torch.int32,
-                      device=table.device)
-    outs = table.out_views(out)
-    desc = table.bind(hcars, fcars, outs)
-    err = chunk_kernels().sw_chunk_qtile_launch(
-        table.codes0, desc.data_ptr(), table.block_map.data_ptr(),
-        table.n_blocks, table.V,
-        qp_tile.data_ptr(), qp_tile.shape[1], gap_open + gap_extend,
-        gap_extend, torch.cuda.current_stream(table.device).cuda_stream)
+    with torch.cuda.device(table.device):
+        out = torch.empty((table.n_blocks, table.V), dtype=torch.int32,
+                          device=table.device)
+        outs = table.out_views(out)
+        desc = table.bind(hcars, fcars, outs)
+        err = chunk_kernels().sw_chunk_qtile_launch(
+            table.codes0, desc.data_ptr(), table.block_map.data_ptr(),
+            table.n_blocks, table.V,
+            qp_tile.data_ptr(), qp_tile.shape[1], gap_open + gap_extend,
+            gap_extend, torch.cuda.current_stream(table.device).cuda_stream)
     raise_on(err, "sw_chunk_qtile_kernel")
     score_chunks_qtile.launches += 1
     return outs, list(hcars), list(fcars)

@@ -12,7 +12,9 @@ runs its plain PyTorch version (``*_ref``) on a CPU tensor:
 
 (``score_chunk`` is the one-chunk case of ``score_chunks``.) There is no
 fallback from one to the other: a CUDA tensor either reaches the kernel or
-raises. ``ChunkTable`` is what the chunk kernels need to take a list of
+raises. Each launch, and every allocation it needs, runs under
+``torch.cuda.device`` of its tensors, so a tensor on ``cuda:1`` is scored
+by cuda:1 whatever device the calling thread has current. ``ChunkTable`` is what the chunk kernels need to take a list of
 chunks in one launch (sw_chunk_kernel here, sw_chunk_qtile_kernel through
 ops/longquery.py).
 
@@ -328,13 +330,15 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
         row_start = row_starts(outrow, n_rows)
     T, jt, V = tiles.shape
     m = qp.shape[1]
-    out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
-    carry = strip_carry(m, tiles.shape, tiles.device)
-    err = kernels().sw_ragged_launch(
-        tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
-        qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
-        int(ceiling is not None), int(ceiling or 0), _ptr(carry),
-        out.data_ptr(), torch.cuda.current_stream(tiles.device).cuda_stream)
+    with torch.cuda.device(tiles.device):
+        out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
+        carry = strip_carry(m, tiles.shape, tiles.device)
+        err = kernels().sw_ragged_launch(
+            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+            qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
+            int(ceiling is not None), int(ceiling or 0), _ptr(carry),
+            out.data_ptr(),
+            torch.cuda.current_stream(tiles.device).cuda_stream)
     raise_on(err, "sw_ragged_kernel")
     score_tiles.launches += 1
     return out
@@ -422,14 +426,15 @@ def score_tiles_packed(tiles, outrow, n_rows: int, qp, seg_of_group,
     T, jt, V = tiles.shape
     m = qp.shape[1]
     n_planes = n_seg_cap // 2
-    out = torch.zeros((n_rows, n_planes, V), dtype=torch.int32,
-                      device=tiles.device)
-    carry = strip_carry(m, tiles.shape, tiles.device)
-    err = kernels().sw_ragged_packed_launch(
-        tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
-        qp.data_ptr(), m, seg_of_group.data_ptr(), n_planes,
-        gap_open + gap_extend, gap_extend, _ptr(carry), out.data_ptr(),
-        torch.cuda.current_stream(tiles.device).cuda_stream)
+    with torch.cuda.device(tiles.device):
+        out = torch.zeros((n_rows, n_planes, V), dtype=torch.int32,
+                          device=tiles.device)
+        carry = strip_carry(m, tiles.shape, tiles.device)
+        err = kernels().sw_ragged_packed_launch(
+            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+            qp.data_ptr(), m, seg_of_group.data_ptr(), n_planes,
+            gap_open + gap_extend, gap_extend, _ptr(carry), out.data_ptr(),
+            torch.cuda.current_stream(tiles.device).cuda_stream)
     raise_on(err, "sw_ragged_packed_kernel")
     score_tiles_packed.launches += 1
     return out
@@ -594,17 +599,18 @@ def score_chunks(chunks, qp, gap_open: int, gap_extend: int,
                 for codes in chunks]
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    out = torch.empty((table.n_blocks, table.V), dtype=torch.int32,
-                      device=table.device)
-    outs = table.out_views(out)
-    carry = strip_carry(m, (table.numel,), table.device)
-    desc = table.bind(None if carry is None else table.carry_views(carry),
-                      None, outs)
-    err = chunk_kernels().sw_chunk_launch(
-        table.codes0, desc.data_ptr(), table.block_map.data_ptr(),
-        table.n_blocks, table.V, qp.data_ptr(), m, gap_open + gap_extend,
-        gap_extend, int(ceiling is not None), int(ceiling or 0),
-        torch.cuda.current_stream(table.device).cuda_stream)
+    with torch.cuda.device(table.device):
+        out = torch.empty((table.n_blocks, table.V), dtype=torch.int32,
+                          device=table.device)
+        outs = table.out_views(out)
+        carry = strip_carry(m, (table.numel,), table.device)
+        desc = table.bind(None if carry is None
+                          else table.carry_views(carry), None, outs)
+        err = chunk_kernels().sw_chunk_launch(
+            table.codes0, desc.data_ptr(), table.block_map.data_ptr(),
+            table.n_blocks, table.V, qp.data_ptr(), m, gap_open + gap_extend,
+            gap_extend, int(ceiling is not None), int(ceiling or 0),
+            torch.cuda.current_stream(table.device).cuda_stream)
     raise_on(err, "sw_chunk_kernel")
     score_chunks.launches += 1
     return outs

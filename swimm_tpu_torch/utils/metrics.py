@@ -21,8 +21,11 @@ def gcups(cells: int, seconds: float) -> float:
 @dataclass
 class PhaseTimer:
     """Named phase timers: with timer.phase("search"): ... accumulates
-    each phase's total seconds."""
+    each phase's total seconds and keeps each entry's duration, so a phase
+    entered once per collective (the sharded merge) can be reported as
+    (count, mean, max) rather than a sum."""
     phases: dict = field(default_factory=dict)
+    events: dict = field(default_factory=dict)
 
     @contextmanager
     def phase(self, name: str):
@@ -32,9 +35,19 @@ class PhaseTimer:
         finally:
             dt = time.perf_counter() - t0
             self.phases[name] = self.phases.get(name, 0.0) + dt
+            self.events.setdefault(name, []).append(dt)
 
     def report(self) -> dict:
         return dict(self.phases)
+
+    def event_stats(self, name: str) -> dict | None:
+        """(count, mean, max) seconds over the entries of one phase; None
+        if the phase never ran."""
+        ev = self.events.get(name)
+        if not ev:
+            return None
+        return {"count": len(ev), "mean_s": sum(ev) / len(ev),
+                "max_s": max(ev)}
 
 
 @dataclass

@@ -123,6 +123,50 @@ def test_search_conflicts_exit_2(files, capsys, flags):
     assert jcli.main([*base, "--backend", "xla", *flags]) == 2
 
 
+@pytest.mark.parametrize("flags", [
+    ["--sharded"], ["--sharded", "--topk-per-shard", "64"],
+    ["--sharded", "--evalue"], ["--sharded", "--format", "json"],
+    ["--sharded", "--stream"],
+    ["--sharded", "--stream", "--window-tiles", "32", "--evalue"]])
+def test_sharded_search_equals_reference(files, capsys, flags):
+    """--sharded on the CPU (one CPU device) prints what swimm_tpu's
+    --sharded prints over its 8 virtual devices."""
+    db, q = files
+    out, err, jout, jerr = _both(capsys, ["search", "-d", db, "-q", q, "-r",
+                                          "3", *flags])
+    if "json" in flags:
+        assert json.loads(out)["results"] == json.loads(jout)["results"]
+    else:
+        assert out == jout and out.count("Query: ") == 2
+
+
+SHARDED_CONFLICTS = [
+    ["--sharded", "--query-pack"],
+    ["--sharded", "--stream-scores", "buffer"],
+    ["--sharded", "--stream", "--stream-scores", "buffer"],
+    ["--topk-per-shard", "64"],
+    ["--query-axis", "2"],
+    ["--sharded", "--stream", "--topk-per-shard", "64"],
+    ["--sharded", "--window-tiles", "64"],
+    ["--stream", "--query-axis", "1"],
+]
+
+
+@pytest.mark.parametrize("flags", SHARDED_CONFLICTS)
+def test_sharded_conflicts_equal_reference(files, capsys, flags):
+    """Each conflict of the sharded flags exits 2 with swimm_tpu's message,
+    word for word."""
+    db, q = files
+    base = ["search", "-d", db, "-q", q]
+    assert cli.main([*base, "--device", "cpu", *flags]) == 2
+    err = capsys.readouterr().err
+    assert jcli.main([*base, "--backend", "xla", *flags]) == 2
+    jerr = capsys.readouterr().err
+    assert err.startswith("swimm_tpu_torch: error: ")
+    assert err.removeprefix("swimm_tpu_torch: error: ") == \
+        jerr.removeprefix("swtpu: error: ")
+
+
 SERVE_ERRORS = [
     ["--warm", "a,b"], ["--warm", "0"], ["--listen", "8080x"],
     ["--listen", "localhost"], ["--listen", "host:port"],

@@ -157,7 +157,11 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.ops._build, swimm_tpu_torch.server, "
             "swimm_tpu_torch.client, swimm_tpu_torch.formats, "
             "swimm_tpu_torch.native, swimm_tpu_torch._cc, "
-            "swimm_tpu_torch.ops.cref, swimm_tpu_torch.ops.traceback\n"
+            "swimm_tpu_torch.ops.cref, swimm_tpu_torch.ops.traceback, "
+            "swimm_tpu_torch.parallel, swimm_tpu_torch.parallel.mesh, "
+            "swimm_tpu_torch.parallel.sharded_search, "
+            "swimm_tpu_torch.parallel.sharded_stream, "
+            "swimm_tpu_torch.parallel.distributed\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
             "or m.startswith('swimm_tpu.'))\n"
