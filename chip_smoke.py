@@ -27,10 +27,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the chunk kernels at V = 128, 64 and 512, m = 8, 40, 2048, a ceiling,
      m = 2064 in 1024-row tiles, a small tile_m, one query-tile launch with
      random carries, and the list forms of both chunk kernels on separately
-     allocated chunks of different B and L in one launch; then all five at
-     the largest gaps accepted (scorer.MAX_GAP: 2^19/2^19, 0/2^19, 2^19/0)
-     at each path's longest profile, and one past the bound refused before
-     any launch (--kernels-only stops here);
+     allocated chunks of different B and L in one launch; for
+     sw_chunk_qtile_kernel, on the carry form of its walk, the case set of
+     sw_ragged_qtile_kernel over lists of chunks (chunks of one to three
+     32-position blocks beside a block of 4,480, one launch a tile); then
+     all five at the largest gaps accepted (scorer.MAX_GAP: 2^19/2^19,
+     0/2^19, 2^19/0) at each path's longest profile, and one past the bound
+     refused before any launch (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -544,6 +547,91 @@ def compare_new_kernels(errs: dict) -> None:
     errs[k5] = max(errs[k5], e)
     note(f"{k5} one tile, random carries in, scores + carries out: "
          f"max_abs_err={e}")
+    compare_chunk_qtile_carry_form(rng, errs)
+
+
+def chunk_carries(rng, chunk):
+    """random_carries for a (B, L, V) chunk: carries shaped like the chunk,
+    the planted F at each block's last position; (hcar, fcar, mask (B, V),
+    expected scores)."""
+    from swimm_tpu_torch.ops import scorer
+    tiles, rs = scorer.chunk_as_stream(chunk)
+    hc, fc, mask, want = random_carries(rng, tiles, rs)
+    return hc.view(chunk.shape), fc.view(chunk.shape), mask, want
+
+
+def compare_chunk_qtile_carry_form(rng, errs: dict) -> None:
+    """sw_chunk_qtile_kernel (the carry form of the hg walk, over a list of
+    chunks in one launch) against score_chunk_qtile_ref chunk by chunk,
+    scores and both outgoing carries: tile_m = 8, 32, 40, 64, 72, 104 and
+    1024 (1 to 32 strips: one worker, 8-row tail strips, odd strip counts,
+    every worker slot filled), chunks of one to three blocks of 32
+    positions (shorter than a round of four workers) beside a block of
+    4,480, 64 to 512 lanes, gaps 10/2, 5/0, 0/3 and 0/0, random carries in
+    with lanes whose score is their incoming F alone; then three chained
+    tiles against one pass over their rows. One launch per tile."""
+    from swimm_tpu_torch.ops import longquery
+    k5 = "sw_chunk_qtile_kernel"
+    tail = ((1, 32), (3, 32), (2, 96), (1, 32))
+    mixed = ((2, 64), (1, 32), (3, 160), (1, 4480), (4, 96), (2, 32))
+
+    def launch(clist, qp, go, ge, hcs, fcs):
+        before = longquery.score_chunks_qtile.launches
+        got = longquery.score_chunks_qtile(clist, qp, go, ge, hcs, fcs)
+        if longquery.score_chunks_qtile.launches != before + 1:
+            raise AssertionError(f"{k5}: a query tile must be one launch")
+        return got
+
+    for shapes, V, tile_m, go, ge in (
+            (mixed, 128, 8, 10, 2), (tail, 128, 32, 5, 0),
+            (tail, 128, 40, 0, 3), (tail, 64, 64, 0, 0),
+            (mixed, 128, 72, 10, 2), (tail, 256, 104, 5, 0),
+            (mixed, 128, 1024, 10, 2), (tail, 512, 72, 0, 3),
+            (tail, 64, 1024, 5, 0), (tail, 256, 1024, 0, 0),
+            (((1, 32),) * 3, 128, 104, 0, 3), (mixed, 512, 1024, 0, 0)):
+        clist = [chunk_case(rng, B, L, V) for B, L in shapes]
+        cars = [chunk_carries(rng, c) for c in clist]
+        qp = profile(rng, tile_m)
+        got = launch(clist, qp, go, ge, [h.clone() for h, *_ in cars],
+                     [f.clone() for _, f, *_ in cars])
+        e, planted = 0, 0
+        for i, (c, (hc, fc, mask, want)) in enumerate(zip(clist, cars)):
+            ref = longquery.score_chunk_qtile_ref(c, qp, go, ge, hc, fc)
+            if not torch.equal(ref[0][mask], want):
+                raise AssertionError(f"{k5} tile_m={tile_m}: the planted F "
+                                     "does not give its lanes' scores")
+            e = max([e] + [max_err(g[i], r) for g, r in zip(got, ref)])
+            planted += int(mask.sum())
+        torch.cuda.synchronize()
+        errs[k5] = max(errs[k5], e)
+        note(f"{k5} carry form V={V} tile_m={tile_m} gaps={go}/{ge} chunks "
+             f"{shapes}, one launch, random carries in (planted F in "
+             f"{planted} lanes), scores + carries out: max_abs_err={e}")
+    for shapes, V, tile_m, go, ge in ((tail, 128, 40, 10, 2),
+                                      (mixed, 128, 104, 0, 3),
+                                      (tail, 256, 72, 5, 0),
+                                      (tail, 128, 512, 0, 0)):
+        clist = [chunk_case(rng, B, L, V) for B, L in shapes]
+        cars = [chunk_carries(rng, c)[:2] for c in clist]
+        qp = profile(rng, 3 * tile_m)
+        best = None
+        hcs, fcs = [h.clone() for h, _ in cars], [f.clone() for _, f in cars]
+        for qt in range(3):
+            outs, hcs, fcs = launch(
+                clist, qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), go,
+                ge, hcs, fcs)
+            best = outs if best is None else [torch.maximum(b, o)
+                                              for b, o in zip(best, outs)]
+        e = 0
+        for i, (c, (hc, fc)) in enumerate(zip(clist, cars)):
+            ref = longquery.score_chunk_qtile_ref(c, qp, go, ge, hc, fc)
+            e = max([e] + [max_err(g, r) for g, r in
+                           zip((best[i], hcs[i], fcs[i]), ref)])
+        torch.cuda.synchronize()
+        errs[k5] = max(errs[k5], e)
+        note(f"{k5} three chained tiles of {tile_m} rows V={V} gaps={go}/{ge}"
+             f" chunks {shapes} vs one pass of {3 * tile_m}: "
+             f"max_abs_err={e}")
 
 
 def compare_at_gap_bound(errs: dict) -> None:

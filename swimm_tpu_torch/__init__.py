@@ -9,10 +9,9 @@ the streaming posture for a DB larger than device memory
 scoring API ``score_db``, E-value statistics
 (``SearchConfig(evalue=True)``), the adaptive-precision ladder
 (``SearchConfig(precision='ladder')``) and their five hand-written kernels
-(csrc/sw_ragged.cu, csrc/sw_chunk.cu over the strip walks of
-csrc/sw_walk_hg.cuh and, for sw_chunk_qtile_kernel, csrc/sw_walk.cuh),
-bit-exact with ``swimm_tpu``. Imports torch and numpy only. Entry points run
-on 'cuda' unless given device='cpu'.
+(csrc/sw_ragged.cu, csrc/sw_chunk.cu, all on the walk of
+csrc/sw_walk_hg.cuh), bit-exact with ``swimm_tpu``. Imports torch and
+numpy only. Entry points run on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search,
                      serve,query,info}

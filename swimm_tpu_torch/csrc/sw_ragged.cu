@@ -64,11 +64,6 @@ namespace {
 
 using namespace sw;
 
-// Workers per DB block of sw_ragged_qtile_kernel: a 1024-row query tile is
-// 32 strips, which four workers share in eight full rounds (two workers:
-// 0.24% slower; sw_walk_hg.cuh).
-constexpr int QTILE_WORKERS = 4;
-
 // The DB block this CUDA block takes. The packed DB is sorted by length,
 // so rows are taken last first: the longest blocks start at once and the
 // short ones fill in behind them, instead of the longest block starting

@@ -1,19 +1,21 @@
-// The walk of the four kernels that score a profile on cooperating workers
-// per DB block: sw_ragged_kernel and sw_ragged_packed_kernel (sw_ragged.cu;
-// they replace swimm_tpu/ops/pallas_scorer.py _dp_ragged_kernel via
-// score_tiles and _dp_packed_kernel via score_tiles_packed),
-// sw_ragged_qtile_kernel (sw_ragged.cu; swimm_tpu/ops/longquery.py
-// _dp_ragged_tile_kernel via _score_tiles_one_qtile, in the carry form
-// below) and sw_chunk_kernel (sw_chunk.cu; _dp_kernel via score_chunk). It
-// is the recurrence of sw_walk.cuh, rewritten for what bounds it on an
-// H100. The chunk query-tile kernel, sw_chunk_qtile_kernel, keeps the walk
-// of sw_walk.cuh.
+// The walk of all five kernels, which score a profile on cooperating
+// workers per DB block: sw_ragged_kernel and sw_ragged_packed_kernel
+// (sw_ragged.cu; they replace swimm_tpu/ops/pallas_scorer.py
+// _dp_ragged_kernel via score_tiles and _dp_packed_kernel via
+// score_tiles_packed), sw_chunk_kernel (sw_chunk.cu; _dp_kernel via
+// score_chunk), and in the carry form below sw_ragged_qtile_kernel
+// (sw_ragged.cu; swimm_tpu/ops/longquery.py _dp_ragged_tile_kernel via
+// _score_tiles_one_qtile) and sw_chunk_qtile_kernel (sw_chunk.cu;
+// _dp_tile_kernel via _score_tile). It is the recurrence of sw_walk.cuh,
+// rewritten for what bounds it on an H100. The measurements below compare
+// it with "the strip walk": one worker (V threads) per DB block, its code
+// and carries loaded one position ahead (PERF.md section 6).
 //
 // What bounds it. Measured on an NVIDIA H100 80GB HBM3 at 700 W: VIADDMNMX
 // and VIMNMX3 start at 62 thread-instructions per clock per SM, half of
 // what the schedulers can start, VIMNMX at 119, and all three share one
 // pipe; additions go elsewhere and overlap them. A warp starts its
-// instructions in order, so a lone warp of the walk of sw_walk.cuh
+// instructions in order, so a lone warp of the strip walk
 // advanced one row in ~34 clocks: its F chain is three to four dependent
 // instructions per row (H, H - goe, max, F - ge). Sixteen warps per SM hid
 // only half of that, and the longest DB block, walked by four warps from
@@ -79,10 +81,11 @@
 // With S == 1 a strip is one step of npos positions and nothing
 // synchronises but the staging of the profile.
 //
-// The carry form (a Carry of type HRows: sw_ragged_qtile_kernel) walks one
-// query tile of a longer query, whose interface is the row above the tile
-// and the tile's own bottom row, as real H and the F entering the next row
-// in two int32 streams (ch, cf) laid out like the codes, updated in place.
+// The carry form (a Carry of type HRows: sw_ragged_qtile_kernel and
+// sw_chunk_qtile_kernel) walks one query tile of a longer query, whose
+// interface is the row above the tile and the tile's own bottom row, as
+// real H and the F entering the next row in two int32 streams (ch, cf)
+// laid out like the codes, updated in place.
 // Every boundary it keeps in device memory is that pair of streams: the
 // first strip reads the row above the tile from them, the last strip
 // (whichever worker holds it) writes the tile's bottom row into them, and
@@ -97,9 +100,10 @@
 // reads and writes a position (S == 1, or worker 0 holding the last
 // strip), its load runs HG_AHEAD positions ahead of the store. As the two
 // pointers may alias, neither is __restrict__; the codes are addressed
-// from the kernel's const __restrict__ parameter. The carries come out
-// exact: H = hg + goe = max(t0, F), and F below = max(t0 - goe, F - ge) =
-// max(H - goe, F - ge) for gap_open >= 0. The per-tile maximum is not the
+// from the kernel's const __restrict__ parameter (kernel 5 re-bases a
+// chunk's codes on it). The carries come out exact: H = hg + goe =
+// max(t0, F), and F below = max(t0 - goe, F - ge) = max(H - goe, F - ge)
+// for gap_open >= 0. The per-tile maximum is not the
 // maximum of t0 there: F also enters from the carry, an H that comes from
 // it is an H of this tile's rows, and it need not lie below any t0 of the
 // tile. So the carry form keeps the maximum of hg = H - goe itself, one
@@ -113,10 +117,11 @@
 // code's low five bits, all the walk uses, are the same. Kernels 1 and 3
 // still read it signed and wait (PERF.md §6: ~11% of their time);
 // kernel 4, whose codes address is re-based from a table, gets a plain
-// LDG.E.S8, which needs no PRMT.
+// LDG.E.S8, which needs no PRMT, and kernel 5, re-based the same way, a
+// plain LDG.E.U8.
 //
 // S, D and the rest, by measurement on that card (whole-DB stream of
-// 50,873 tiles, m = 448; the walk of sw_walk.cuh: 51.8 ms): S = 1 40.4 ms,
+// 50,873 tiles, m = 448; the strip walk: 51.8 ms): S = 1 40.4 ms,
 // S = 2 35.6, S = 4 41.5 (14 strips leave two of 16 worker slots idle, and
 // a 512-thread block leaves no second block on the SM); D = 16 37.9, D = 32
 // 35.6, D = 48 35.9; loads 1, 2, 4 positions ahead 37.2 (before the last
@@ -124,12 +129,17 @@
 // registers, twice the warps) 41.9 with S = 4 and 77.7 with S = 1, where
 // the doubled carry traffic does bind. 120-128 registers under
 // __launch_bounds__(512, 1): two blocks of 256 threads per SM. The carry
-// form (a 1024-row tile, 32 strips, over the whole-DB stream; the walk of
-// sw_walk.cuh: 88.7 ms; tools/walk_variants.py): code bytes signed 84.4 ms
+// form (a 1024-row tile, 32 strips, over the whole-DB stream; the strip
+// walk: 88.7 ms; tools/walk_variants.py): code bytes signed 84.4 ms
 // at S = 2, 85.1 at S = 4; unsigned 75.4 at S = 2, 75.2 at S = 4 (eight
 // full rounds), so four workers; the incoming F folded into a maximum of
 // t0 in place of the maximum of hg 75.4 (one VIMNMX more per position and
-// strip); 123 registers.
+// strip); 123 registers. Kernel 5 on the carry form (the next 1024-row
+// tile over the 55 chunks of that DB, one launch; the strip walk: 96.8 ms;
+// tools/qtile_variants.py, in turns): 74.5 ms at S = 4, 74.5 at S = 2
+// (0.1% faster, within its spread from round to round) while kernel 2
+// runs 0.2% slower at S = 2; kernel 2 runs over twenty times as often on
+// the main paths, so both keep four workers. 126 registers, no spills.
 
 #pragma once
 
@@ -142,8 +152,13 @@ namespace sw {
 
 constexpr int HG_STEP = 32;         // D: db positions per lock step (S > 1)
 constexpr int HG_AHEAD = 2;         // positions the loads run ahead
-constexpr int HG_MAX_WORKERS = 2;   // S at most (sw_ragged_qtile_kernel:
+constexpr int HG_MAX_WORKERS = 2;   // S at most (the carry form:
                                     // QTILE_WORKERS)
+// S at most in the carry form (sw_ragged_qtile_kernel, sw_chunk_qtile_kernel):
+// a 1024-row query tile is 32 strips, which four workers share in eight
+// full rounds (two workers: kernel 2 0.2% slower, kernel 5 0.1-0.3% faster;
+// see the top of this file).
+constexpr int QTILE_WORKERS = 4;
 constexpr int HG_MAX_THREADS = 512; // S * V at most, so V at most
 constexpr int SEG_ROWS = 8;         // rows per segment group of a packed
                                     // multi-query profile
@@ -218,9 +233,9 @@ __device__ __forceinline__ void worker_sync(int k, int V, int workers) {
 // step to step. gm holds the running maximum: one for the lane (G == 1),
 // or one per 8-row group of the strip in the packed form (G ==
 // STRIP_GROUPS), where cap holds the groups' caps on F. It is a maximum of
-// t0, or of hg in the carry form (see the top of this file). As in
-// sw_walk.cuh the loads of a position's code and top row are started
-// ahead of its turn, here HG_AHEAD positions.
+// t0, or of hg in the carry form (see the top of this file). The loads
+// of a position's code and top row are started HG_AHEAD positions ahead
+// of its turn.
 template <int R, bool CEIL, int G, class Top, class Bot>
 __device__ __forceinline__ void hg_step(int (&hg)[STRIP], int (&e)[STRIP],
                                         int& diag_top, int (&gm)[G],

@@ -6,7 +6,8 @@ with PAD_SCORE (pad rows never raise a score) and walked one query tile at a
 time: each tile is one launch of ``sw_ragged_qtile_kernel`` over the whole
 DB tile stream (``score_tiles_long``), or of ``sw_chunk_qtile_kernel`` over
 a list of rectangular chunks (``score_chunks_long``; ``score_chunk_long``
-is its one-chunk case). The row above each tile
+is its one-chunk case); both run the carry form of the walk of
+csrc/sw_walk_hg.cuh, four workers to a DB block. The row above each tile
 travels between launches in two int32 carry streams aligned with the db
 codes — the real H of the previous tile's bottom row and the real F
 entering this tile's first row (the JAX kernels carry a global-ramp cummax

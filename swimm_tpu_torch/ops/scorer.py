@@ -39,21 +39,18 @@ import torch
 NEG = -(1 << 28)   # same floor as the CUDA kernels (csrc/sw_ragged.cu)
 JT = 32            # db positions per tile (PackedDb.flat_tiles)
 MAX_LANES = 512    # lane width V at most: a CUDA block has a thread per lane
-# (per worker). Four kernels are compiled for at most 512 threads (csrc/
-# sw_walk_hg.cuh HG_MAX_THREADS), and sw_chunk_qtile_kernel holds over 100
-# registers a thread, so an SM has no room for more: on an H100 all five
-# launch at V = 512 and none at V = 544. The same limit on every device, so
-# the CPU tests see the card's
+# (per worker). All five kernels are compiled for at most 512 threads
+# (csrc/sw_walk_hg.cuh HG_MAX_THREADS), so on an H100 all five launch at
+# V = 512 and none at V = 544. The same limit on every device, so the CPU
+# tests see the card's
 
 
 MAX_GAP = 1 << 19  # gap_open and gap_extend at most (real penalties are tens)
 # Every scorer computes in int32. Where each would first wrap, with goe =
 # gap_open + gap_extend and H <= 34,816 (2,048 rows in one pass times 17,
 # the largest entry of the package's matrices):
-#   kernels 1-4 (csrc/sw_walk_hg.cuh) keep hg = H - goe and an F >= -goe
+#   the kernels (csrc/sw_walk_hg.cuh) keep hg = H - goe and an F >= -goe
 #     (or NEG), and form F - goe and NEG - goe:       goe <= 2^30
-#   kernel 5 (csrc/sw_walk.cuh) forms E - ge and F - ge from >= -goe:
-#                                                     goe + ge <= 2^31
 #   the plain walk (walk_ref) adds the ramp (m - 1) * ge to H, and
 #     subtracts it from an incoming F that may be NEG = -2^28:
 #     one pass of m = 2,048 rows                      ge <= 1,049,071

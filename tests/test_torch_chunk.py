@@ -171,30 +171,46 @@ def chunk_list(seed, qlen, shapes, V=8):
     return q, qp, chunks
 
 
-@pytest.mark.parametrize("seed,qlen,gaps", [(61, 90, (10, 2)),
-                                            (62, 95, (10, 2)),
-                                            (63, 70, (5, 0))])
-def test_score_chunks_long_list_vs_one_chunk_pallas_and_one_pass(seed, qlen,
-                                                                 gaps):
-    # B = 1 in a chunk of one 32-position tile, the longest chunk first:
-    # the list form gives, chunk for chunk, the one-chunk form's scores,
-    # the JAX package's and the one-pass plain scorer's
-    q, qp, chunks = chunk_list(seed, qlen, [(2, 96), (1, 32), (3, 64)])
+THREE = ((2, 96), (1, 32), (3, 64))
+
+
+@pytest.mark.parametrize("seed,qlen,gaps,V,tile_m,shapes,vs_jax", [
+    pytest.param(61, 90, (10, 2), 8, 32, THREE, True, id="61-90-gaps0"),
+    pytest.param(62, 95, (10, 2), 8, 32, THREE, True, id="62-95-gaps1"),
+    pytest.param(63, 70, (5, 0), 8, 32, THREE, False, id="63-70-gaps2"),
+    # the shapes the card holds sw_chunk_qtile_kernel's carry form to: one
+    # 8-row strip a tile, flat and free gaps (0/0), 256 and 512 lanes,
+    # 1024-row tiles, chunks of one 32-position block (chunks of one shape
+    # share one Pallas compile)
+    pytest.param(71, 20, (0, 0), 8, 8, ((1, 32), (2, 64)), True,
+                 id="tile_m8-gaps0-0"),
+    pytest.param(72, 90, (10, 2), 256, 32, ((2, 32), (2, 32)), True,
+                 id="V256"),
+    pytest.param(73, 60, (0, 0), 512, 1024, ((1, 32), (1, 32)), True,
+                 id="V512-tile_m1024-gaps0-0"),
+])
+def test_score_chunks_long_list_vs_one_chunk_pallas_and_one_pass(
+        seed, qlen, gaps, V, tile_m, shapes, vs_jax):
+    # B = 1 in a chunk of one 32-position tile: the list form gives, chunk
+    # for chunk, the one-chunk form's scores, the one-pass plain scorer's,
+    # the oracle's and (vs_jax; each chunk shape compiles a Pallas kernel)
+    # the JAX package's
+    q, qp, chunks = chunk_list(seed, qlen, shapes, V=V)
     tc = [torch.from_numpy(c) for c in chunks]
     tqp = torch.from_numpy(qp)
-    got = tlong.score_chunks_long(tc, tqp, *gaps, tile_m=32)
+    got = tlong.score_chunks_long(tc, tqp, *gaps, tile_m=tile_m)
     assert len(got) == len(chunks)
     for codes, c, g in zip(chunks, tc, got):
         assert g.dtype == torch.int32 and g.shape == codes.shape[::2]
         assert torch.equal(g, tlong.score_chunk_long(c, tqp, *gaps,
-                                                     tile_m=32))
+                                                     tile_m=tile_m))
         assert np.array_equal(g.numpy(), port_chunk(codes, qp, *gaps))
         assert np.array_equal(g.numpy(), oracle(q, codes, *gaps))
-        if gaps == (10, 2):
+        if vs_jax:
             assert np.array_equal(g.numpy(), np.asarray(
                 longquery.score_chunk_long(jnp.asarray(codes),
                                            jnp.asarray(qp), *gaps,
-                                           tile_m=32)))
+                                           tile_m=tile_m)))
 
 
 @pytest.mark.parametrize("ceiling,with_table", [(None, False), (None, True),
