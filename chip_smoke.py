@@ -33,7 +33,15 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      32-position blocks beside a block of 4,480, one launch a tile); then
      all five at the largest gaps accepted (scorer.MAX_GAP: 2^19/2^19,
      0/2^19, 2^19/0) at each path's longest profile, and one past the bound
-     refused before any launch (--kernels-only stops here);
+     refused before any launch; and the two measurement kernels of
+     csrc/probe.cu (built with the others, three nvcc at once):
+     chain_kernel's three forms (f32, viaddmnmx, vimnmx3) at the TPU's
+     (512, 128) tile at loops 0-8 on the JAX function's linspace and on
+     integers below 2^24 (the int32 forms also equal to the f32 form), at
+     the card-filling 33 tiles and at a size that ends inside a block;
+     narrow_kernel in int32, int16x2 and int8x4 at steps 0, 1, 8 and 33 on
+     the JAX probe's input, random values of the whole type and values at
+     its edges that wrap (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -57,11 +65,28 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the widest pack over the whole stream; every chunk at query 0's m in
      one launch, also equal to kernel 1's lanes;
      the long query's third tile over every chunk with the second tile's
-     carries in), their times beside their bounds (instruction rate
-     peak from the card's SM count and max clock), kernel 1's time without
+     carries in), their times beside their bounds (bound_ms: the nominal
+     instruction rate, roofline.peak_instruction_rate, from the card's SM
+     count and max clock; pipe_bound_ms: the rates phase 19 measures),
+     kernel 1's time without
      the 100 longest blocks and on those alone, GCUPS, latencies, profiled
-     20-query searches (kernel device time and the device's idle share); a
-     `kernels` JSON line, then the device JSON as the last line.
+     20-query searches (kernel device time and the device's idle share);
+ 19. the rates, after phase 8, with every launch counter set to 0 before
+     and read after (chain_kernel and narrow_kernel must have launched):
+     benchmarks/roofline.report (each chain form's instructions per step
+     read from its SASS, its rates at the TPU's tile and filling the card,
+     the band of speed-of-light GCUPS, the walk's SASS per cell, kernel 1's
+     padded GCUPS at 1,024 and 50,865 tiles and MFU) and
+     benchmarks/probe_narrow_int.report (int32 against int16x2 and int8x4);
+     every kernel gets a pipe_bound_ms: its own SASS load a cell or step
+     (roofline.walk_load) over the measured half-rate pipe and total issue
+     (roofline.walk_bound_s), or its bytes; chain_kernel and narrow_kernel
+     must not have launched on the main paths of 3-6; both timed at the
+     TPU functions' shapes (narrow_kernel at 4,096 steps, where the kernel
+     and not its launch takes the time) against their plain versions, and
+     bit-exact. Then the roofline and probe JSON
+     lines, the summary, a `kernels` JSON line of seven kernels, and the
+     device JSON as the last line.
 Between 7 and 8, the later paths, each after a warm-up with its own launch
 counts (the kernels line keeps counting the main paths of 3-6):
   9. the 20 queries with evalue=True: hits equal the plain batch's; each
@@ -146,24 +171,6 @@ import torch
 
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-INSTR_PER_CLK_SM = 128      # thread-instructions an SM can start per clock:
-# 4 warp schedulers x 32 lanes, one instruction per scheduler per clock
-# (Hopper architecture white paper); times SM count and max SM clock, both
-# read from the card, gives the card's peak instruction rate. The 64
-# int32 add/min/max results per clock per SM in NVIDIA's arithmetic
-# throughput table for sm_90 is NOT the ceiling of these kernels: sm_90 fuses
-# an addition into a maximum, and a kernel of this repo has already run
-# below the time that table gives for 11 additions and maxima per cell
-OPS_PER_CELL = 6.5          # instructions per DP cell, counted from the
-# recurrence (not from any build of it) in the shortest sm_90 sequence:
-#   hg = H - goe                       1  VIADD, shared: this row's next
-#                                         column (E) and this column's next
-#                                         row (F) both want it
-#   E  = max(hg_left, E - ge)          1  VIADDMNMX
-#   F  = max(hg_above, F - ge)         1  VIADDMNMX
-#   H  = max(diag + S, E, F, 0)        2  VIADDMNMX + VIMNMX3
-#   running max over two rows          0.5  VIMNMX3 (two H per instruction)
-#   S  = profile[row][code]            1  shared-memory load
 N_SEQS = 570_000
 N_QUERIES = 20
 LONG_LEN = 5000
@@ -686,6 +693,84 @@ def compare_at_gap_bound(errs: dict) -> None:
             raise AssertionError("a refused gap must not launch")
 
 
+def probe_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest difference of two equal-shaped results, in float64 for the
+    f32 chains (max_err truncates to integers) and as integers else."""
+    if a.dtype.is_floating_point:
+        return float((a.double() - b.double()).abs().max().item())
+    return max_err(a, b)
+
+
+def compare_probe_kernels(errs: dict) -> None:
+    """Phase 2: chain_kernel's three forms and narrow_kernel's three lane
+    types against their plain versions on the card, bit-exact. P1 at the
+    TPU's (512, 128) tile at small loop counts: its own linspace input in
+    f32, integers in f32 and int32 (kept below 2^24, where f32 is exact,
+    so the three forms must agree with each other too), at loops 0 to 8,
+    the card-filling 33 tiles, and a size
+    that ends inside a block. P2 at steps 0, 1, 8 and 33: the JAX probe's
+    input, every value of int8 and random int16 and int32, values at the
+    edges that wrap in int16 and int8 (a + a and a + 120 past the top),
+    and sizes of one 32-bit word."""
+    from swimm_tpu_torch.benchmarks import probe_narrow_int as pn
+    from swimm_tpu_torch.benchmarks import roofline as rl
+    rng = np.random.default_rng(13)
+    tile = (rl.ROWS, rl.VK)
+    ints = [torch.from_numpy(rng.integers(-3000, 3000, tile, dtype=np.int32)),
+            torch.from_numpy(rng.integers((1 << 24) - 20_000,
+                                          (1 << 24) - 9_000, tile,
+                                          dtype=np.int32))]
+    cases = [("f32", rl.chain_input("f32", 1, "cuda"), loops)
+             for loops in (1, 3, 8)]
+    for x in ints:
+        for loops in (0, 1, 3, 8):
+            cases += [("f32", x.float().cuda(), loops),
+                      ("viaddmnmx", x.cuda(), loops),
+                      ("vimnmx3", x.cuda(), loops)]
+    fill = rl.card_filling_tiles(torch.device("cuda"))
+    for form in rl.FORMS:
+        cases += [(form, rl.chain_input(form, fill, "cuda"), 1),
+                  (form, rl.chain_input(form, 1, "cuda").view(-1)[:1000]
+                   .contiguous(), 2)]
+    err = 0.0
+    for form, x, loops in cases:
+        got = rl.chains(x, loops, form)
+        err = max(err, probe_err(got, rl.chains_ref(x, loops, form)))
+        if x.shape == tile and x.dtype == torch.int32:
+            same = rl.chains(x.float(), loops, "f32")
+            err = max(err, probe_err(got.float(), same))
+    torch.cuda.synchronize()
+    errs["chain_kernel"] = max(errs["chain_kernel"], err)
+    note(f"chain_kernel, 3 forms, {len(cases)} cases vs plain (and the "
+         f"int32 forms vs f32): max_abs_err={err}")
+
+    edges = {torch.int32: [(1 << 31) - 1, -(1 << 31), (1 << 30), -(1 << 30),
+                           (1 << 30) - 1, 1_073_741_000, 1000, -1000, 0, 7],
+             torch.int16: [32_767, -32_768, 32_766, -32_767, 16_384, 16_383,
+                           -16_385, 20_000, 32_647, 32_648, 120, -120],
+             torch.int8: [127, -128, 126, -127, 120, 8, 7, 64, 63, -64, 0,
+                          -120]}
+    full = {torch.int32: (-(1 << 31), 1 << 31, 1),   # (lo, hi, lanes a word)
+            torch.int16: (-32_768, 32_768, 2), torch.int8: (-128, 128, 4)}
+    err, n = 0, 0
+    for dt, (lo, hi, lanes) in full.items():
+        xs = [pn.probe_input(dt, pn.SHAPE, "cuda"),
+              torch.from_numpy(rng.integers(lo, hi, pn.SHAPE)).to(dt).cuda(),
+              torch.tensor(edges[dt] * 4, dtype=dt).cuda(),
+              torch.tensor(edges[dt][:lanes], dtype=dt).cuda()]
+        if dt == torch.int8:
+            xs.append(torch.arange(-128, 128, dtype=dt).cuda())
+        for x in xs:
+            for steps in (0, 1, 8, 33):
+                err = max(err, probe_err(pn.narrow(x, steps),
+                                         pn.narrow_ref(x, steps)))
+                n += 1
+    torch.cuda.synchronize()
+    errs["narrow_kernel"] = max(errs["narrow_kernel"], err)
+    note(f"narrow_kernel, int32 / int16x2 / int8x4, {n} cases vs plain "
+         f"(wrapping at the edges): max_abs_err={err}")
+
+
 def longest_block_check(dev_db, qp_short, errs: dict) -> None:
     """Both kernels vs plain on the DB's longest block."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -824,17 +909,6 @@ def sampled(fn):
                  "power_w": float(np.mean([r[1] for r in readings])),
                  "power_w_max": max(r[1] for r in readings),
                  "readings": len(readings)}
-
-
-def instruction_rate() -> float:
-    """The card's peak thread-instruction rate: SMs x 128 per clock x max
-    SM clock."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INSTR_PER_CLK_SM * mhz * 1e6
 
 
 def bound(bytes_moved: float, ops: float, int_rate: float):
@@ -1810,6 +1884,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from swimm_tpu_torch import _cc
+    from swimm_tpu_torch.benchmarks import probe_kernels
+    from swimm_tpu_torch.benchmarks import probe_narrow_int as pn
+    from swimm_tpu_torch.benchmarks import roofline as rl
     from swimm_tpu_torch.db import build_db
     from swimm_tpu_torch.fasta import FastaRecord
     from swimm_tpu_torch.models import engine, qpack
@@ -1831,7 +1908,9 @@ def main(argv=None) -> int:
                 "sw_ragged_qtile_kernel": longquery.score_qtile,
                 "sw_ragged_packed_kernel": scorer.score_tiles_packed,
                 "sw_chunk_kernel": scorer.score_chunks,
-                "sw_chunk_qtile_kernel": longquery.score_chunks_qtile}
+                "sw_chunk_qtile_kernel": longquery.score_chunks_qtile,
+                "chain_kernel": rl.chains, "narrow_kernel": pn.narrow}
+    search_kernels = list(counters)[:5]
     launches = dict.fromkeys(counters, 0)
 
     def counted(fn, main=True):
@@ -1850,7 +1929,9 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build + kernels vs plain ----
     t = time.perf_counter()
+    _build.build("sw_ragged", "sw_chunk", "probe")   # three nvcc at once
     scorer.build_kernels()
+    probe_kernels()
     phases["build_s"] = time.perf_counter() - t
     for src, log in sorted(_build.BUILD_LOGS.items()):
         for line in log.splitlines():
@@ -1860,6 +1941,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     compare_kernels(errs)
     compare_new_kernels(errs)
+    compare_probe_kernels(errs)
     compare_at_gap_bound(errs)
     phases["compare_s"] = time.perf_counter() - t
     if kernels_only:
@@ -2019,8 +2101,8 @@ def main(argv=None) -> int:
     phases["rescore_s"] = time.perf_counter() - t
     note(f"rescored {n_checked} hits exactly (numpy oracle on 3 queries, "
          "plain scorer on all); every top hit is a planted homolog")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in search_kernels:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
     # ---- phases 9-12: E-values and the precision ladder ----
@@ -2052,14 +2134,13 @@ def main(argv=None) -> int:
     tmp.cleanup()
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
-    int_rate = instruction_rate()
+    int_rate = rl.peak_instruction_rate()
     note(f"instruction rate peak from the card: {int_rate / 1e12:.2f} "
          "T thread-instructions/s")
     stream_bytes = tiles.numel() + 8 * (n_rows + 1)
 
-    def walk_bound(m, extra_bytes):
-        return bound(stream_bytes + 4 * 32 * m + extra_bytes,
-                     OPS_PER_CELL * lanes_pos * m, int_rate)
+    def walk_work(m, extra_bytes):   # (bytes moved, DP cells)
+        return stream_bytes + 4 * 32 * m + extra_bytes, lanes_pos * m
 
     t = time.perf_counter()
     k1 = lambda: scorer.score_tiles(tiles, outrow, n_rows, qp1, 10, 2,
@@ -2072,7 +2153,7 @@ def main(argv=None) -> int:
     note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: "
          f"max_abs_err={e1}")
     del ref1
-    b1, b1_by = walk_bound(m1, 4 * n_rows * V)
+    w1 = walk_work(m1, 4 * n_rows * V)
     # how much of kernel 1's time is the tail of long blocks: the stream
     # without its 100 longest blocks (the last rows), and those alone
     cut = n_rows - 100
@@ -2118,7 +2199,7 @@ def main(argv=None) -> int:
     k2_ms = cuda_ms(lambda: longquery.score_qtile(
         tiles, outrow, n_rows, qp2, 10, 2, hk, fk, row_start))
     del hk, fk
-    b2, b2_by = walk_bound(m2, 4 * n_rows * V + 16 * lanes_pos)
+    w2 = walk_work(m2, 4 * n_rows * V + 16 * lanes_pos)
     phases["full_size_k1_k2_s"] = time.perf_counter() - t
 
     # kernel 3 on the widest pack over the whole stream
@@ -2137,7 +2218,7 @@ def main(argv=None) -> int:
          f"of {len(wide.entries)} queries: max_abs_err={e3}")
     planes_bytes = got3.numel() * 4
     del got3, ref3
-    b3, b3_by = walk_bound(wide.M, 4 * (wide.M // 8) + planes_bytes)
+    w3 = walk_work(wide.M, 4 * (wide.M // 8) + planes_bytes)
     phases["full_size_k3_s"] = time.perf_counter() - t
 
     # kernel 4 over every chunk at query 0's m, in one launch; the chunks
@@ -2160,9 +2241,8 @@ def main(argv=None) -> int:
     note(f"sw_chunk_kernel vs plain, all {n_chunks} chunks at m={m1} in one "
          f"launch: max_abs_err={e4}; equal to sw_ragged_kernel's lanes")
     del got1, got4, ref4
-    b4, b4_by = bound(tiles.numel() + n_chunks * 4 * 32 * m1
-                      + 4 * n_rows * V, OPS_PER_CELL * lanes_pos * m1,
-                      int_rate)
+    w4 = (tiles.numel() + n_chunks * 4 * 32 * m1 + 4 * n_rows * V,
+          lanes_pos * m1)
     phases["full_size_k4_s"] = time.perf_counter() - t
 
     # kernel 5: the long query's third tile over every chunk, the second
@@ -2189,45 +2269,148 @@ def main(argv=None) -> int:
         chunks, qp5, 10, 2, got5[1], got5[2], table),      # those carries
         reps=3)
     del got5
-    b5, b5_by = bound(tiles.numel() + 4 * 32 * tm + 48 * n_chunks
-                      + 8 * n_rows + 4 * n_rows * V + 16 * lanes_pos,
-                      OPS_PER_CELL * lanes_pos * tm, int_rate)
+    w5 = (tiles.numel() + 4 * 32 * tm + 48 * n_chunks + 8 * n_rows
+          + 4 * n_rows * V + 16 * lanes_pos, lanes_pos * tm)
     phases["full_size_k5_s"] = time.perf_counter() - t
+
+    # ---- phase 19: the rates: P1 and P2 driven through their entry
+    # points, counted; the five kernels' bounds on the measured rates ----
+    t = time.perf_counter()
+
+    def rates():
+        roof = rl.report("cuda", n_reps=3)
+        phases["rates_roofline_s"] = time.perf_counter() - t
+        return roof, pn.report("cuda", n_reps=3)
+
+    (roof, probe), seen = counted(rates, main=False)
+    search_launches = {}   # P1 and P2 on the main paths of 3-6: none
+    for name in ("chain_kernel", "narrow_kernel"):
+        search_launches[name] = launches[name]
+        if search_launches[name] != 0:
+            raise AssertionError(f"{name} was launched "
+                                 f"{search_launches[name]} times on the "
+                                 "search paths")
+        if seen[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the rates "
+                                 "phase")
+        launches[name] = seen[name]
+    failed = [k for k, v in probe.items() if "compiles" in k and not v]
+    if failed:
+        raise AssertionError(f"narrow_kernel failed: {failed} {probe}")
+    walk = roof["walk_rates"]
+    note(f"measured rates (filled card): the half-rate pipe "
+         f"{walk['half_rate_per_s'] / 1e12:.3f} T/s, best total issue "
+         f"{walk['issue_per_s'] / 1e12:.3f} T/s; SASS per step "
+         f"{roof['sass_per_step']}; sol band at m={roof['m']} "
+         f"{roof['sol_gcups_band']} GCUPS ({roof['sol']['low_by']}); "
+         f"kernel 1 padded {roof['measured_padded_gcups']:.1f} GCUPS at "
+         "1,024 tiles "
+         f"(spread {roof['measured_padded_gcups_spread_pct']:.2f}%), "
+         f"{roof['filled_padded_gcups']['median']:.1f} at 50,865")
+    note(f"narrow probe: int16 x{probe['int16_speedup_vs_int32']:.3f}, "
+         f"int8 x{probe['int8_speedup_vs_int32']:.3f} vs int32 at "
+         f"{pn.SHAPE}; filled x{probe['int16_speedup_vs_int32_filled']:.3f}"
+         f", x{probe['int8_speedup_vs_int32_filled']:.3f}; SASS per step "
+         f"{probe['sass_per_step']}")
+    # P1 and P2 at the TPU functions' shapes, against plain: the f32
+    # chains at the long loop count; the int32 step chained at the probe's
+    # long step count (8 steps, the TPU's scan, take ~1 us: a time of the
+    # launch, not of the kernel)
+    x1 = rl.chain_input("f32", 1, "cuda")
+    k6_ms, got = timed(lambda: rl.chains(x1, rl.LOOPS[1], "f32"), reps=3)
+    p6_ms, ref = timed(lambda: rl.chains_ref(x1, rl.LOOPS[1], "f32"))
+    errs["chain_kernel"] = max(errs["chain_kernel"], probe_err(got, ref))
+    steps6 = rl.LOOPS[1] * rl.UNROLL * rl.CHAINS * x1.numel()
+    b6, b6_by = bound(8 * x1.numel(), 3 * steps6 + 7 * x1.numel(), int_rate)
+    x2 = pn.probe_input(torch.int32, pn.SHAPE, "cuda")
+    steps7 = pn.STEPS[1]
+    k7_ms, got = timed(lambda: pn.narrow(x2, steps7), reps=3)
+    p7_ms, ref = timed(lambda: pn.narrow_ref(x2, steps7))
+    errs["narrow_kernel"] = max(errs["narrow_kernel"], probe_err(got, ref))
+    # instructions as the walk's bound counts them, the shortest sm_90
+    # sequence: 4 a step (VIADD, 2 VIADDMNMX, VIMNMX3), not its 7 integer
+    # operations, which the fused ones beat
+    b7, b7_by = bound(8 * x2.numel(), 4 * steps7 * x2.numel(), int_rate)
+    phases["rates_s"] = time.perf_counter() - t
+    note(f"phase 19 (rates) {phases['rates_s']:.1f} s, of it "
+         f"roofline.report {phases['rates_roofline_s']:.1f} s")
 
     for name, e in errs.items():
         if e != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"(max_abs_err={e})")
-    rows = [  # name, source, replaces, ms, plain ms, bound, by, shape
+    opc = rl.ops_per_cell(8)["total"]
+    rows = [  # name, source, replaces, ms, plain ms, (bytes, cells),
+        # shape, its SASS name in the library
         ("sw_ragged_kernel", "sw_ragged.cu",
-         "swimm_tpu/ops/pallas_scorer.py:317", k1_ms, p1_ms, b1, b1_by,
-         f"T={T} V={V} m={m1}"),
+         "swimm_tpu/ops/pallas_scorer.py:317", k1_ms, p1_ms, w1,
+         f"T={T} V={V} m={m1}", "sw_ragged_kernelILb0E"),
         ("sw_ragged_qtile_kernel", "sw_ragged.cu",
-         "swimm_tpu/ops/longquery.py:208", k2_ms, p2_ms, b2, b2_by,
-         f"T={T} V={V} tile_m={m2}"),
+         "swimm_tpu/ops/longquery.py:208", k2_ms, p2_ms, w2,
+         f"T={T} V={V} tile_m={m2}", "sw_ragged_qtile_kernel"),
         ("sw_ragged_packed_kernel", "sw_ragged.cu",
-         "swimm_tpu/ops/pallas_scorer.py:434", k3_ms, p3_ms, b3, b3_by,
-         f"T={T} V={V} M={wide.M} queries={len(wide.entries)}"),
+         "swimm_tpu/ops/pallas_scorer.py:434", k3_ms, p3_ms, w3,
+         f"T={T} V={V} M={wide.M} queries={len(wide.entries)}",
+         "sw_ragged_packed_kernel"),
         ("sw_chunk_kernel", "sw_chunk.cu",
-         "swimm_tpu/ops/pallas_scorer.py:245", k4_ms, p4_ms, b4, b4_by,
+         "swimm_tpu/ops/pallas_scorer.py:245", k4_ms, p4_ms, w4,
          f"{n_chunks} chunks, {n_rows} blocks, V={V} m={m1}; one launch "
-         "over all chunks"),
+         "over all chunks", "sw_chunk_kernelILb0E"),
         ("sw_chunk_qtile_kernel", "sw_chunk.cu",
-         "swimm_tpu/ops/longquery.py:126", k5_ms, p5_ms, b5, b5_by,
+         "swimm_tpu/ops/longquery.py:126", k5_ms, p5_ms, w5,
          f"{n_chunks} chunks, {n_rows} blocks, V={V} tile_m={tm}; one "
-         "launch over all chunks"),
+         "launch over all chunks", "sw_chunk_qtile_kernel"),
     ]
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": f"swimm_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "exact": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-         "bound_by": by, "library_ms": None, "shape": shape}
-        for name, src, replaces, ms, plain_ms, b, by, shape in rows]
+
+    def measured_bound(nbytes, work, load):
+        """(ms, by) on this card's measured rates: ``work`` cells or steps
+        of ``load`` (roofline.walk_load of the kernel's own SASS) over the
+        half-rate pipe and total issue (roofline.walk_bound_s), or the
+        bytes over the memory rate, whichever is longer."""
+        t_m = rl.walk_bound_s(work, load, walk)
+        t_m["bytes"] = nbytes / HBM_BYTES_PER_S
+        by_m = max(t_m, key=t_m.get)
+        return t_m[by_m] * 1e3, by_m
+
+    kernels = []
+    for (name, src, replaces, ms, plain_ms, (nbytes, cells), shape,
+         sass_name) in rows:
+        b, by = bound(nbytes, opc * cells, int_rate)
+        load = rl.walk_load(rl.walk_sass_per_cell(src[:-3], sass_name))
+        pb, pby = measured_bound(nbytes, cells, load)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"swimm_tpu_torch/csrc/{src}", "replaces": replaces,
+             "launches": launches[name], "max_abs_err": errs[name],
+             "exact": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+             "bound_by": by, "pipe_bound_ms": pb, "pipe_bound_by": pby,
+             "sass_load": load, "library_ms": None, "shape": shape})
+    for name, replaces, ms, plain_ms, b, by, work, load, shape in (
+            ("chain_kernel", "benchmarks/roofline.py:110", k6_ms, p6_ms, b6,
+             b6_by, (8 * x1.numel(), steps6),
+             rl.walk_load(roof["sass_per_step"]["f32"]),
+             f"f32 form, {tuple(x1.shape)} x {rl.CHAINS} chains, "
+             f"{rl.LOOPS[1]} loops of {rl.UNROLL} steps"),
+            ("narrow_kernel", "benchmarks/probe_narrow_int.py:37", k7_ms,
+             p7_ms, b7, b7_by, (8 * x2.numel(), steps7 * x2.numel()),
+             rl.walk_load(probe["sass_per_step"]["int32"]),
+             f"int32, {tuple(x2.shape)}, {steps7} steps")):
+        pb, pby = measured_bound(*work, load)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "swimm_tpu_torch/csrc/probe.cu", "replaces": replaces,
+             "launches": launches[name],
+             "main_search_launches": search_launches[name],
+             "max_abs_err": errs[name], "exact": True, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "pipe_bound_ms": pb, "pipe_bound_by": pby, "sass_load": load,
+             "library_ms": None, "shape": shape})
     for k in kernels:
         note(f"{k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.1f} ms, "
-             f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}), "
-             f"{k['launches']} launches on the main path; {k['shape']}")
+             f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}, measured "
+             f"bound {k['pipe_bound_ms']:.3f} ms by {k['pipe_bound_by']} "
+             f"at {k['sass_load']}), {k['launches']} launches; "
+             f"{k['shape']}")
 
     def batch(m):
         return {"seconds": m.seconds, "gcups": m.gcups,
@@ -2258,6 +2441,8 @@ def main(argv=None) -> int:
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,
     }
+    print(json.dumps({"roofline": roof}), flush=True)
+    print(json.dumps({"probe_narrow_int": probe}), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -161,10 +161,13 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.parallel, swimm_tpu_torch.parallel.mesh, "
             "swimm_tpu_torch.parallel.sharded_search, "
             "swimm_tpu_torch.parallel.sharded_stream, "
-            "swimm_tpu_torch.parallel.distributed\n"
+            "swimm_tpu_torch.parallel.distributed, "
+            "swimm_tpu_torch.benchmarks.roofline, "
+            "swimm_tpu_torch.benchmarks.probe_narrow_int\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
-            "or m.startswith('swimm_tpu.'))\n"
+            "or m.startswith('swimm_tpu.') or m == 'benchmarks' "
+            "or m.startswith('benchmarks.'))\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
