@@ -152,6 +152,19 @@ after a warm-up with its launches counted exactly:
      all_reduce calls, counted), destroyed after; (g) one `python -m
      swimm_tpu_torch search --sharded --topk-per-shard 64` subprocess,
      exit 0, hits equal phase 3's.
+Then the card fuzz (benchmarks/fuzz.py, benchmarks/acceptance.py), before
+phase 8, its launches counted apart from the kernels line:
+ 20. (a) fuzz rounds from seed 0 (a random matrix of 8, gaps 0-20/0-8, a
+     query of 1-1,199 or 2,049-3,999 aa, 1-3 blocks of 32-256 positions
+     with adversarial lanes, a ceiling of 127 or 32,767), every route a
+     round can take (kernels 4 and 1 with its ceiling, or 5 and 2, on the
+     blocks as chunks and as a ragged stream; kernel 3 on a pack of 2-6 new
+     queries; the ladder) equal to the C oracle, until all 8 matrices and
+     the routes of kernels 1-5 have run (at most 64 rounds); (b)
+     acceptance config 1: every lane of score_db over 10,000 sequences
+     equal to the C oracle; (c) one fuzz_packed round (3,000 sequences,
+     per query against packed, the oracle on a top hit); kernels 1-5 must
+     each have launched in the phase.
 Phase 3 packs the DB through build_db's native route (csrc/swpack.c).
 
 Imports nothing of JAX or of the swimm_tpu package.
@@ -175,6 +188,7 @@ N_SEQS = 570_000
 N_QUERIES = 20
 LONG_LEN = 5000
 N_SHORT = 100               # short queries, per query against packed
+FUZZ_CAP = 64               # phase 20's most fuzz rounds
 
 
 def note(msg: str) -> None:
@@ -1875,6 +1889,79 @@ def sharded_paths(db_dir, packed, spacked, dev_db, queries, results, long_q,
     return out
 
 
+def card_fuzz(search_kernels, counted) -> dict:
+    """Phase 20, the card fuzz (benchmarks/fuzz.py, benchmarks/acceptance.py),
+    its launches counted apart from the kernels line: (a) fuzz rounds from
+    seed 0, every route each round can take held exactly against the C
+    oracle, until all 8 matrices and the routes of kernels 1-5 have run
+    (at most FUZZ_CAP rounds); (b) acceptance config 1, every lane of
+    score_db over 10,000 sequences equal to the oracle; (c) one fuzz_packed
+    round at the reference's sizes. Each of kernels 1-5 must have launched.
+    Nothing is caught. Returns the numbers and the phase's seconds."""
+    from swimm_tpu_torch.benchmarks import acceptance, fuzz
+    t_phase = time.perf_counter()
+    out = {"seed": 0, "matrices": [], "routes": [], "ceilings": [],
+           "long_rounds": 0}
+
+    def run():
+        rng = np.random.default_rng(0)
+        for r in range(FUZZ_CAP):
+            draw = fuzz.draw_round(rng)
+            res = fuzz.run_round(draw, "cuda", np.random.default_rng([0, r]))
+            if res["mismatch"] is not None:
+                raise AssertionError(
+                    f"phase 20 fuzz seed 0 round {r} ({draw.matrix} "
+                    f"{draw.gap_open}/{draw.gap_extend}, qlen {draw.qlen}, "
+                    f"codes {draw.codes.shape}, ceiling {draw.ceiling}): "
+                    f"first mismatch (route, block, lane, got, exp) "
+                    f"{res['mismatch']}")
+            for key, new in (("matrices", [draw.matrix]),
+                             ("routes", res["routes"]),
+                             ("ceilings", [draw.ceiling])):
+                out[key] += [x for x in new if x not in out[key]]
+            out["long_rounds"] += draw.long
+            if (set(out["matrices"]) == set(fuzz.MATRICES)
+                    and set(out["routes"]) == set(fuzz.ROUTES)):
+                break
+        else:
+            raise AssertionError(f"phase 20: {FUZZ_CAP} rounds ran {out} "
+                                 "and not every matrix and route")
+        out["rounds"] = r + 1
+        out["fuzz_s"] = time.perf_counter() - t_phase
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as td:
+            row, c1 = acceptance.config1(Path(td), "cuda")
+        if not row.exact:
+            raise AssertionError(f"phase 20 acceptance config 1: {row}")
+        out["config1"] = {"lanes": len(c1["scores"]), "gcups": row.gcups,
+                          "s": time.perf_counter() - t}
+        t = time.perf_counter()
+        packed_round, = fuzz.fuzz_packed(1, 0, "cuda")
+        if not packed_round["ok"]:
+            raise AssertionError("phase 20 fuzz_packed round 0 of seed 0: "
+                                 "packed hits differ from the per-query "
+                                 "hits or the oracle")
+        out["fuzz_packed"] = {"queries": len(packed_round["queries"]),
+                              "s": time.perf_counter() - t}
+
+    _, seen = counted(run, main=False)
+    out["launches"] = {name: seen[name] for name in search_kernels}
+    for name in search_kernels:
+        if seen[name] <= 0:
+            raise AssertionError(f"phase 20: {name} was not launched")
+    out["phase_s"] = time.perf_counter() - t_phase
+    note(f"phase 20 (card fuzz) {out['phase_s']:.1f} s: {out['rounds']} "
+         f"rounds from seed 0 ({out['long_rounds']} long) in "
+         f"{out['fuzz_s']:.1f} s, matrices {out['matrices']}, routes "
+         f"{out['routes']}, ceilings {out['ceilings']}; acceptance config 1 "
+         f"exact over {out['config1']['lanes']:,} lanes "
+         f"({out['config1']['s']:.1f} s); "
+         f"fuzz_packed round of {out['fuzz_packed']['queries']} queries "
+         f"equal ({out['fuzz_packed']['s']:.1f} s); launches "
+         f"{out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
                                         else argv)
@@ -2132,6 +2219,10 @@ def main(argv=None) -> int:
                             counted, errs)
     phases.update(sharded.pop("phases_s"))
     tmp.cleanup()
+
+    # ---- phase 20: the card fuzz, against the C oracle ----
+    fuzzed = card_fuzz(search_kernels, counted)
+    phases["card_fuzz_s"] = fuzzed["phase_s"]
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
     int_rate = rl.peak_instruction_rate()
@@ -2437,6 +2528,7 @@ def main(argv=None) -> int:
         "stream": streamed,
         "serving": serving,
         "sharded": sharded,
+        "card_fuzz": fuzzed,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

@@ -2,11 +2,14 @@
 benchmarks/roofline.py (``roofline``: the attainable instruction rates, the
 walk's instructions per cell, speed-of-light GCUPS and MFU) and
 benchmarks/probe_narrow_int.py (``probe_narrow_int``: the DP step's op mix
-in int32, 16x2 and 8x4 lanes). Their two kernels are in csrc/probe.cu.
+in int32, 16x2 and 8x4 lanes), whose two kernels are in csrc/probe.cu; and
+the exactness guards, counterparts of benchmarks/fuzz_tpu.py (``fuzz``)
+and benchmarks/acceptance.py (``acceptance``).
 
-This module holds what both share: the probe library, a device timer, the
-card's name, and the SASS reader that counts the instructions a step of a
-kernel's loop issues. Nothing here runs at import time.
+This module holds what they share: the probe library, a device timer, the
+card's name, hit-list equality, and the SASS reader that counts the
+instructions a step of a kernel's loop issues. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -50,6 +53,13 @@ def device_seconds(fn, device: torch.device) -> float:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / 1e3
+
+
+def same_hits(a, b) -> bool:
+    """Equal (score, sorted index) hit lists, query for query."""
+    return all([(h.score, h.sorted_idx) for h in x.hits]
+               == [(h.score, h.sorted_idx) for h in y.hits]
+               for x, y in zip(a, b))
 
 
 def card() -> str:

@@ -163,7 +163,9 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.parallel.sharded_stream, "
             "swimm_tpu_torch.parallel.distributed, "
             "swimm_tpu_torch.benchmarks.roofline, "
-            "swimm_tpu_torch.benchmarks.probe_narrow_int\n"
+            "swimm_tpu_torch.benchmarks.probe_narrow_int, "
+            "swimm_tpu_torch.benchmarks.fuzz, "
+            "swimm_tpu_torch.benchmarks.acceptance\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
             "or m.startswith('swimm_tpu.') or m == 'benchmarks' "
