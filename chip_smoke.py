@@ -165,6 +165,23 @@ phase 8, its launches counted apart from the kernels line:
      equal to the C oracle; (c) one fuzz_packed round (3,000 sequences,
      per query against packed, the oracle on a top hit); kernels 1-5 must
      each have launched in the phase.
+Then the measurement entry points (swimm_tpu_torch.bench and
+benchmarks/bench_*.py), before phase 8, on the phase-3 DB and queries,
+their launches counted apart from the kernels line:
+ 21. each module's run() once: bench_serve (a `serve --listen`
+     subprocess on the phase-3 DB directory: 3 serial, 4 concurrent, a
+     soak of 10; no error, no more dispatches than concurrent requests,
+     every reply equal to a direct search) on a thread while the next
+     run: bench_kernel at full size (its chained total equal to the plain
+     version's chain); bench_serving, bench_longquery (the 5,000-aa
+     query), bench_swissprot --quick, bench_evalue and bench_ladder at one
+     rep; bench_scaling over 1, 2 and 4 virtual shards; then, the server
+     stopped, bench with one rep and the ladder and stream extras (link
+     probe keys present, no *_error or *_skipped key) and its three
+     headline reps under torch.profiler with kernel 1's device ms on every
+     launch (min / median / max for each rep, and a query's spread across
+     the reps); every result equal to phases 3-6 and 9; kernels 1-4 must
+     each have launched in the phase.
 Phase 3 packs the DB through build_db's native route (csrc/swpack.c).
 
 Imports nothing of JAX or of the swimm_tpu package.
@@ -863,11 +880,13 @@ def check_hits(packed, queries, results, config, n_oracle: int) -> int:
     return n
 
 
-def device_breakdown(fn) -> dict:
+def device_breakdown(fn, launches_of: str | None = None) -> dict:
     """Wall time of fn() under torch.profiler, the device time of its CUDA
     kernels (ours vs the rest, host-to-device copies among the rest and
     also apart), and the device's idle share of the wall. Device numbers
-    read "not measured" when the trace holds no device time."""
+    read "not measured" when the trace holds no device time. With
+    launches_of, also "launch_ms": the device ms of every launch of the
+    kernels whose name holds it, in the order they started."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -890,8 +909,13 @@ def device_breakdown(fn) -> dict:
         return {"wall_ms": wall_ms, "kernel_ms": "not measured",
                 "other_device_ms": "not measured", "h2d_ms": "not measured",
                 "idle_share": "not measured"}
-    return {"wall_ms": wall_ms, "kernel_ms": ours, "other_device_ms": other,
-            "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms}
+    out = {"wall_ms": wall_ms, "kernel_ms": ours, "other_device_ms": other,
+           "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms}
+    if launches_of is not None:
+        out["launch_ms"] = [e.time_range.elapsed_us() / 1e3 for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and launches_of in e.name), key=lambda e: e.time_range.start)]
+    return out
 
 
 def sampled(fn):
@@ -1962,6 +1986,180 @@ def card_fuzz(search_kernels, counted) -> dict:
     return out
 
 
+def bench_entry_points(db_dir, packed, queries, results, long_q, long_res,
+                       e_res, vec, counted) -> dict:
+    """Phase 21, the measurement entry points (swimm_tpu_torch.bench and
+    benchmarks/bench_*.py), each run() once on the card on the phase-3 DB
+    and queries (no second DB built, the resident stream not uploaded
+    again), stdout captured and noted, launches counted apart from the
+    kernels line. bench_serve first (a `serve --listen` subprocess on the
+    phase-3 DB directory: 3 serial requests, 4 concurrent, a soak of 10),
+    on a thread, so that the server starts while bench_kernel at full size
+    (its chained total equal to the plain version's chain), bench_serving
+    and bench_longquery (the 5,000-aa query), bench_swissprot (--quick),
+    bench_evalue, bench_ladder (one rep each) and bench_scaling (1, 2 and
+    4 virtual shards) run; then, with the server stopped, bench (reps=1,
+    the link probe, the ladder and stream extras; the MFU is phase 19's)
+    and its headline reps (3) once more under torch.profiler with kernel
+    1's device ms per launch for each rep. Every result equals phases 3-6
+    and 9 (hits, scores, E-values, score vectors) or a direct search of
+    the same queries. Nothing is caught. Returns the numbers and the
+    phase's seconds."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from swimm_tpu_torch import bench
+    from swimm_tpu_torch.benchmarks import (bench_evalue, bench_kernel,
+                                            bench_ladder, bench_longquery,
+                                            bench_scaling, bench_serve,
+                                            bench_serving, bench_swissprot)
+    from swimm_tpu_torch.models.engine import SearchConfig, search
+    from swimm_tpu_torch.ops import scorer
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "s": {}}
+
+    def step(name, fn):
+        """fn() with its stdout noted line by line, its launches counted."""
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res, seen = counted(fn, main=False)
+        out["s"][name] = time.perf_counter() - t
+        out["launches"][name] = {k: n for k, n in seen.items() if n}
+        for line in buf.getvalue().splitlines():
+            note(f"phase 21 {name}: {line}")
+        return res
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(f"phase 21 {name}: results differ from "
+                                 "the earlier phases'")
+
+    # the serve subprocess starts (~10 s) while the steps below run; the
+    # headline and its profiled reps come after it has stopped
+    pool = ThreadPoolExecutor(1)
+    t_serve = time.perf_counter()
+    served = pool.submit(lambda: (bench_serve.run(
+        "cuda", n_requests=3, concurrent=4, soak=10, db_dir=db_dir),
+        time.perf_counter() - t_serve))
+
+    line, total = step("bench_kernel", lambda: bench_kernel.run("cuda"))
+    _, qp, codes = bench_kernel.chain_inputs((32, 512, 128), "cuda")
+    check("bench_kernel", total == int(bench_kernel.chained(
+        codes, qp, 8, scorer.score_chunk_ref)))
+    out["bench_kernel"] = line
+
+    w = step("bench_serving", lambda: bench_serving.run(
+        "cuda", reps=1, packed=packed, queries=queries))
+    check("bench_serving", same_hits(w["results"], results))
+    out["bench_serving"] = {"seconds": w["metrics"].seconds,
+                            "gcups": w["metrics"].gcups}
+    w = step("bench_longquery", lambda: bench_longquery.run(
+        "cuda", reps=1, packed=packed, queries=[long_q]))
+    check("bench_longquery", same_hits(w["results"], long_res))
+    out["bench_longquery"] = {"seconds": w["metrics"].seconds,
+                              "gcups": w["metrics"].gcups}
+
+    lines, w = step("bench_swissprot", lambda: bench_swissprot.run(
+        "cuda", quick=True, reps=1, packed=packed, queries=queries))
+    check("bench_swissprot", same_hits(w["resident"][0], results)
+          and all(same_hits(r, results) for r, _ in w["stream"])
+          and np.array_equal(w["restream"], vec))
+    out["bench_swissprot"] = lines[-1]
+    summary, w = step("bench_evalue", lambda: bench_evalue.run(
+        "cuda", reps=1, packed=packed, queries=queries))
+    check("bench_evalue", same_hits(w["plain"][0], results)
+          and same_hits(w["evalue"][0], e_res)
+          and same_evalues_of(w["evalue"][0], e_res))
+    out["bench_evalue"] = summary
+    line, w = step("bench_ladder", lambda: bench_ladder.run(
+        "cuda", reps=1, packed=packed, queries=queries))
+    check("bench_ladder", line["hits_equal"]
+          and same_hits(w["adaptive"][0], results))
+    out["bench_ladder"] = line
+
+    rows = step("bench_scaling", lambda: bench_scaling.run(
+        "cuda", max_devices=4, packed=packed, queries=queries))
+    check("bench_scaling", [r["mesh"] for r in rows] == [1, 2, 4] and all(
+        r["exact"] and same_hits(r["results"], results) for r in rows))
+    out["bench_scaling"] = [{k: v for k, v in r.items() if k != "results"}
+                            for r in rows]
+
+    (line, w), out["s"]["bench_serve"] = served.result()
+    pool.shutdown()
+    out["launches"]["bench_serve"] = {}     # its launches are the server's
+    direct, _ = search(packed, w["queries"], SearchConfig(top_k=16))
+    replies = w["serial"] + w["concurrent"] + w["soak"]
+    check("bench_serve", line["soak_errors"] == 0
+          and line["concurrent_dispatches"] <= 4 and all(
+              [[(h["rank"], h["score"], h["title"]) for h in r["hits"]]
+               for r in x["results"]]
+              == [[(h.rank, h.score, h.title) for h in direct[x["id"]].hits]]
+              for x in replies))
+    note(f"phase 21 bench_serve: {json.dumps(line)}")
+    out["bench_serve"] = line
+
+    line, w = step("bench", lambda: bench.run(
+        "cuda", reps=1, extras=True, mfu=False, packed=packed,
+        queries=queries))
+    check("bench", same_hits(w["results"], results)
+          and same_hits(w["ladder"][0], results)
+          and same_hits(w["stream"][0], results))
+    want = {"h2d_mbps", "pull_rtt_ms", "ladder_gcups", "stream_gcups",
+            "stream_link_floor_s", "stream_stall_limited"}
+    if not want <= set(line) or any(k.endswith(("_error", "_skipped"))
+                                    for k in line):
+        raise AssertionError(f"phase 21 bench line: {line}")
+    out["bench"] = line
+
+    # the headline's reps under the profiler: kernel 1's device ms on each
+    # launch, 20 a search (the warm-up, then each rep)
+    box = []
+    prof = device_breakdown(lambda: box.append(step(
+        "bench_profiled", lambda: bench.run(
+            "cuda", extras=False, mfu=False, packed=packed,
+            queries=queries))), launches_of="sw_ragged_kernel")
+    line, w = box[0]
+    check("bench_profiled", same_hits(w["results"], results))
+    ms = prof.pop("launch_ms")
+    n_runs = 1 + line["resident_reps"]
+    if len(ms) != N_QUERIES * n_runs:
+        raise AssertionError(f"phase 21: {len(ms)} kernel-1 launches traced "
+                             f"for {n_runs} searches of {N_QUERIES}")
+    reps = [ms[i * N_QUERIES:(i + 1) * N_QUERIES] for i in range(n_runs)]
+    per_query = np.array(reps[1:])             # (reps, queries)
+    out["bench_profiled"] = dict(
+        prof, line=line, kernel1_ms_per_run=[
+            {"run": "warm-up" if i == 0 else f"rep {i}", "sum": sum(r),
+             "min": min(r), "median": float(np.median(r)), "max": max(r)}
+            for i, r in enumerate(reps)],
+        kernel1_query_spread_pct=float(100 * (
+            per_query.max(0) / per_query.min(0) - 1).max()))
+    note(f"phase 21 headline reps under torch.profiler: kernel 1 ms per "
+         f"launch (min / median / max, sum) "
+         + "; ".join(f"{r['run']} {r['min']:.2f} / {r['median']:.2f} / "
+                     f"{r['max']:.2f}, {r['sum']:.1f}"
+                     for r in out["bench_profiled"]["kernel1_ms_per_run"])
+         + f"; a query's launch spread across reps "
+         f"{out['bench_profiled']['kernel1_query_spread_pct']:.2f}%; idle "
+         f"{prof['idle_share']}")
+
+    seen = {}
+    for counts in out["launches"].values():
+        for k, n in counts.items():
+            seen[k] = seen.get(k, 0) + n
+    for name in ("sw_ragged_kernel", "sw_ragged_qtile_kernel",
+                 "sw_ragged_packed_kernel", "sw_chunk_kernel"):
+        if not seen.get(name):
+            raise AssertionError(f"phase 21: {name} was not launched")
+    out["phase_s"] = time.perf_counter() - t_phase
+    note(f"phase 21 (bench entry points) {out['phase_s']:.1f} s, by step "
+         f"{ {k: round(v, 1) for k, v in out['s'].items()} }; launches "
+         f"{out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     kernels_only = "--kernels-only" in (sys.argv[1:] if argv is None
                                         else argv)
@@ -2218,11 +2416,16 @@ def main(argv=None) -> int:
                             streamed["batch20_8192"]["runs"], config,
                             counted, errs)
     phases.update(sharded.pop("phases_s"))
-    tmp.cleanup()
 
     # ---- phase 20: the card fuzz, against the C oracle ----
     fuzzed = card_fuzz(search_kernels, counted)
     phases["card_fuzz_s"] = fuzzed["phase_s"]
+
+    # ---- phase 21: the measurement entry points, on the phase-3 DB ----
+    benched = bench_entry_points(td / "db", packed, queries, results, long_q,
+                                 long_res, e_res, vec, counted)
+    phases["bench_entry_points_s"] = benched["phase_s"]
+    tmp.cleanup()
 
     # ---- phase 8: kernels vs plain at main-path shapes, timed ----
     int_rate = rl.peak_instruction_rate()
@@ -2529,6 +2732,7 @@ def main(argv=None) -> int:
         "serving": serving,
         "sharded": sharded,
         "card_fuzz": fuzzed,
+        "bench_entry_points": benched,
         "phases_s": phases,
         "hits_rescored": n_checked,
         "wall_s": time.perf_counter() - T_START,

@@ -15,6 +15,8 @@ numpy only. Entry points run on 'cuda' unless given device='cpu'.
 
   cli / __main__     python -m swimm_tpu_torch {synth,preprocess,search,
                      serve,query,info}
+  bench              python -m swimm_tpu_torch.bench: the headline
+                     measurement (benchmarks/ holds the others)
   server             SearchServer, Batcher, stdio / TCP / HTTP front ends
   client             the client of a running server (imports no torch)
   models.engine      SearchConfig, search (resident DB, device top-k,

@@ -2,14 +2,20 @@
 benchmarks/roofline.py (``roofline``: the attainable instruction rates, the
 walk's instructions per cell, speed-of-light GCUPS and MFU) and
 benchmarks/probe_narrow_int.py (``probe_narrow_int``: the DP step's op mix
-in int32, 16x2 and 8x4 lanes), whose two kernels are in csrc/probe.cu; and
-the exactness guards, counterparts of benchmarks/fuzz_tpu.py (``fuzz``)
-and benchmarks/acceptance.py (``acceptance``).
+in int32, 16x2 and 8x4 lanes), whose two kernels are in csrc/probe.cu; the
+exactness guards, counterparts of benchmarks/fuzz_tpu.py (``fuzz``) and
+benchmarks/acceptance.py (``acceptance``); and the measurement entry
+points, counterparts of benchmarks/bench_*.py (``bench_kernel``,
+``bench_serving``, ``bench_longquery``, ``bench_swissprot``,
+``bench_evalue``, ``bench_ladder``, ``bench_serve``, ``bench_scaling``;
+the headline bench.py is ``swimm_tpu_torch.bench``).
 
 This module holds what they share: the probe library, a device timer, the
-card's name, hit-list equality, and the SASS reader that counts the
-instructions a step of a kernel's loop issues. Nothing here runs at import
-time.
+card's name, hit-list equality, the SASS reader that counts the
+instructions a step of a kernel's loop issues, and the bench scripts'
+workload: the query set, the cached synthetic Swiss-Prot-scale DB, a
+best-of-reps loop and the C oracle's check of the top hits. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
+
+REPO = Path(__file__).resolve().parents[2]
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PROBE_SIGNATURES = {
@@ -68,6 +77,106 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def launch_counts() -> dict:
+    """Each search kernel's launches so far, by kernel name: the counters
+    its wrapper adds one to at every launch on a card."""
+    from swimm_tpu_torch.ops import longquery, scorer
+    return {"sw_ragged_kernel": scorer.score_tiles.launches,
+            "sw_ragged_qtile_kernel": longquery.score_qtile.launches,
+            "sw_ragged_packed_kernel": scorer.score_tiles_packed.launches,
+            "sw_chunk_kernel": scorer.score_chunks.launches,
+            "sw_chunk_qtile_kernel": longquery.score_chunks_qtile.launches}
+
+
+def where(device: torch.device) -> str:
+    """What a measurement ran on: the card's name and power limit, or
+    'cpu (no card)'."""
+    return card() if device.type == "cuda" else "cpu (no card)"
+
+
+def bench_queries(n_queries: int) -> list:
+    """The bench scripts' query set: lengths from
+    default_rng(0).integers(100, 501), then synth_queries(seed=1)."""
+    from swimm_tpu_torch.utils.synth import synth_queries
+    qlens = list(np.random.default_rng(0).integers(100, 501,
+                                                   size=n_queries))
+    return synth_queries(n_queries, qlens, seed=1)
+
+
+def bench_db_dir(n_seqs: int, root=None) -> Path:
+    """Where the synthetic DB of n_seqs sequences is cached: root (default
+    the repository) / .bench_sp_torch_{n_seqs}."""
+    return Path(REPO if root is None else root) / f".bench_sp_torch_{n_seqs}"
+
+
+def bench_db(n_seqs: int, queries, root=None, fresh: bool = False):
+    """The synthetic Swiss-Prot-scale DB of the headline bench and
+    bench_swissprot: synth_fasta_fast(seed=2, homolog_frac=0.0005) with
+    ``queries`` as the homologs' sources, packed by build_db's native route
+    at V=128, both cached in bench_db_dir (sp.fasta, db/). A cached pack
+    is loaded unless ``fresh``. Returns (packed, {"synth_s",
+    "total_residues", "db_build_s"} of what this call made)."""
+    from swimm_tpu_torch.db import build_db, load_db
+    from swimm_tpu_torch.utils.synth import synth_fasta_fast
+    root = bench_db_dir(n_seqs, root)
+    root.mkdir(parents=True, exist_ok=True)
+    fasta, dbdir = root / "sp.fasta", root / "db"
+    if not fresh and (dbdir / "manifest.json").exists():
+        return load_db(dbdir), {}
+    made = {}
+    if fresh or not fasta.exists():
+        t = time.perf_counter()
+        made["total_residues"] = synth_fasta_fast(
+            fasta, n_seqs, seed=2, queries=[q.codes for q in queries],
+            homolog_frac=0.0005)
+        made["synth_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    packed = build_db(str(fasta), dbdir, V=128)
+    made["db_build_s"] = time.perf_counter() - t
+    return packed, made
+
+
+class MissingDb(FileNotFoundError):
+    """The cached bench DB a script reads is not there."""
+
+
+def cached_bench_db(n_seqs: int, root=None):
+    """The cached pack of bench_db, memmapped; MissingDb when absent."""
+    from swimm_tpu_torch.db import load_db
+    dbdir = bench_db_dir(n_seqs, root) / "db"
+    if not (dbdir / "manifest.json").exists():
+        raise MissingDb(dbdir)
+    return load_db(dbdir)
+
+
+def best_of(fn, reps: int, more=None):
+    """Run fn() -> (results, SearchMetrics) once, then again while fewer
+    than ``reps`` runs were made and ``more()`` (if given) is true.
+    Returns (results, metrics) of the fastest run and the number of runs."""
+    best, n = None, 0
+    while n < reps and (n == 0 or more is None or more()):
+        res, met = fn()
+        n += 1
+        if best is None or met.seconds < best[1].seconds:
+            best = (res, met)
+    return best[0], best[1], n
+
+
+def check_hits_vs_oracle(packed, queries, results, n_queries: int = 3):
+    """The top 4 hits of the first n_queries queries rescored by the C
+    oracle (BLOSUM62 10/2) on the sequences read back from the pack;
+    AssertionError on any difference."""
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.ops import cref
+    sub = get_matrix("BLOSUM62")
+    for q, res in list(zip(queries, results))[:n_queries]:
+        seqs = [packed.seq_codes(h.sorted_idx) for h in res.hits[:4]]
+        exp = [int(x) for x in cref.sw_score_many(q.codes, seqs, sub, 10, 2)]
+        got = [h.score for h in res.hits[:4]]
+        if exp != got:
+            raise AssertionError(f"{q.title}: oracle {exp}, search {got}")
 
 
 def _cuobjdump() -> str:

@@ -165,7 +165,16 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.benchmarks.roofline, "
             "swimm_tpu_torch.benchmarks.probe_narrow_int, "
             "swimm_tpu_torch.benchmarks.fuzz, "
-            "swimm_tpu_torch.benchmarks.acceptance\n"
+            "swimm_tpu_torch.benchmarks.acceptance, "
+            "swimm_tpu_torch.bench, "
+            "swimm_tpu_torch.benchmarks.bench_kernel, "
+            "swimm_tpu_torch.benchmarks.bench_serving, "
+            "swimm_tpu_torch.benchmarks.bench_longquery, "
+            "swimm_tpu_torch.benchmarks.bench_swissprot, "
+            "swimm_tpu_torch.benchmarks.bench_evalue, "
+            "swimm_tpu_torch.benchmarks.bench_ladder, "
+            "swimm_tpu_torch.benchmarks.bench_serve, "
+            "swimm_tpu_torch.benchmarks.bench_scaling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'swimm_tpu' "
             "or m.startswith('swimm_tpu.') or m == 'benchmarks' "
