@@ -130,7 +130,11 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the search "
                          "(Chrome trace JSON; CPU and, on a card, CUDA "
-                         "activity) into this directory")
+                         "activity) into this directory; it carries the "
+                         "program's spans beside the kernels: "
+                         "engine.search, phase.h2d, phase.score, "
+                         "engine.profile, engine.launch, engine.top_k and "
+                         "engine.collect")
 
     sv = sub.add_parser(
         "serve",

@@ -52,7 +52,7 @@ from swimm_tpu_torch.models.stream import (check_streamable, dispatched_rows,
                                            stream_windows)
 from swimm_tpu_torch.ops import longquery, scorer
 from swimm_tpu_torch.utils import stats
-from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics
+from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics, span
 
 
 @dataclass
@@ -328,13 +328,19 @@ def scatter_lane_scores(packed: PackedDb, flat: np.ndarray) -> np.ndarray:
     return out
 
 
+def lane_scorer(mode: str):
+    """The wrapper that scores one profile's lanes in ``mode``; its
+    ``.kernel`` names the CUDA kernel it launches."""
+    return (scorer.score_tiles if mode == "tiles"
+            else longquery.score_tiles_long)
+
+
 def score_lanes(dev_db, qp: torch.Tensor, mode: str,
                 config: SearchConfig) -> torch.Tensor:
     """(n_rows * V,) int32 scores of every lane for one (32, m) profile."""
     tiles, outrow, n_rows, row_start = dev_db[:4]
     prec = kernel_precision(config)
-    fn = (scorer.score_tiles if mode == "tiles"
-          else longquery.score_tiles_long)
+    fn = lane_scorer(mode)
     return fn(tiles, outrow, n_rows, qp, config.gap_open, config.gap_extend,
               precision=prec, row_start=row_start).reshape(-1)
 
@@ -447,18 +453,25 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
             queries, config.m_multiple).items():
         mode = select_mode(m_pad)
         padded_rows += dispatched_rows(mode, m_pad) * len(positions)
+        kernel = lane_scorer(mode).kernel
         for p in positions:
-            qp = torch.from_numpy(build_query_profile(
-                queries[p].codes, config.matrix, config.m_multiple)).to(dev)
-            scores = score_lanes(dev_db, qp, mode, config)
-            v, si = device_top_k(scores, mask, lane2sorted, k)
+            with span("engine.profile"):
+                qp = torch.from_numpy(build_query_profile(
+                    queries[p].codes, config.matrix,
+                    config.m_multiple)).to(dev)
+            with span("engine.launch", kernel=kernel,
+                      cells=queries[p].length * int(packed.total_residues)):
+                scores = score_lanes(dev_db, qp, mode, config)
+            with span("engine.top_k"):
+                v, si = device_top_k(scores, mask, lane2sorted, k)
             order.append(p)
             vs.append(v)
             sis.append(si)
             if config.evalue:
                 hists.append(score_hist(scores, mask, lane_bins))
-    _collect_hits(packed, config, order, vs, sis,
-                  hists if config.evalue else None, out)
+    with span("engine.collect"):
+        _collect_hits(packed, config, order, vs, sis,
+                      hists if config.evalue else None, out)
     return out, padded_rows
 
 
@@ -681,29 +694,30 @@ def search(packed: PackedDb, queries, config: SearchConfig | None = None,
             "bytes); serving via the windowed streaming path (the same "
             "hits)", stacklevel=2)
         config = replace(config, db_stream=True)
-    timer = PhaseTimer()
-    t0 = time.perf_counter()
-    with timer.phase("h2d"):             # one-time upload, then cached
-        if not config.db_stream:         # (windows upload while scoring)
-            device_tiles(packed, device)
-    with timer.phase("score"):
-        if config.db_stream:
-            hit_lists, padded_rows, lane_positions = search_streaming_batch(
-                packed, queries, config, device)
-        else:
-            hit_lists, padded_rows = search_fused_batch(packed, queries,
-                                                        config, device)
-            lane_positions = sum(ch.n_blocks * ch.L * ch.V
-                                 for ch in packed.chunks)
-    results = [QueryResult(q.title, q.length, h)
-               for q, h in zip(queries, hit_lists)]
-    seconds = time.perf_counter() - t0
-    metrics = SearchMetrics(
-        cells=int(packed.total_residues) * sum(q.length for q in queries),
-        padded_cells=lane_positions * padded_rows,
-        n_db_seqs=packed.n_seqs,
-        n_queries=len(queries),
-        seconds=seconds,
-        timers=timer.report(),
-    )
+    with span("engine.search"):
+        timer = PhaseTimer()
+        t0 = time.perf_counter()
+        with timer.phase("h2d"):             # one-time upload, then cached
+            if not config.db_stream:         # (windows upload while scoring)
+                device_tiles(packed, device)
+        with timer.phase("score"):
+            if config.db_stream:
+                hit_lists, padded_rows, lane_positions = \
+                    search_streaming_batch(packed, queries, config, device)
+            else:
+                hit_lists, padded_rows = search_fused_batch(packed, queries,
+                                                            config, device)
+                lane_positions = sum(ch.n_blocks * ch.L * ch.V
+                                     for ch in packed.chunks)
+        results = [QueryResult(q.title, q.length, h)
+                   for q, h in zip(queries, hit_lists)]
+        seconds = time.perf_counter() - t0
+        metrics = SearchMetrics(
+            cells=int(packed.total_residues) * sum(q.length for q in queries),
+            padded_cells=lane_positions * padded_rows,
+            n_db_seqs=packed.n_seqs,
+            n_queries=len(queries),
+            seconds=seconds,
+            timers=timer.report(),
+        )
     return results, metrics

@@ -122,6 +122,10 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
     return best
 
 
+# the CUDA kernel it launches, through score_qtile
+score_tiles_long.kernel = "sw_ragged_qtile_kernel"
+
+
 def score_chunk_qtile_ref(codes, qp_tile, gap_open: int, gap_extend: int,
                           hcar, fcar):
     """Plain PyTorch version of one query-tile launch over a chunk: returns

@@ -342,6 +342,7 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
 
 
 score_tiles.launches = 0   # sw_ragged_kernel launches (never the plain path)
+score_tiles.kernel = "sw_ragged_kernel"   # its CUDA kernel's name
 
 
 def check_segments(seg_of_group, qp, n_seg_cap: int) -> None:

@@ -56,12 +56,21 @@ dispatcher and the thread that warmed share one stream and one upload.
 After a CUDA fault every later CUDA call in the process fails: each
 request answers error_kind "internal" and the server keeps answering; no
 request is retried on the CPU or through a plain version.
+
+A run under a torch profiler (the CLI's ``search --profile-dir``, or any
+``torch.profiler.profile`` around a server in the process) records the
+program's spans (utils/metrics.py): ``batcher.queue``, ``batcher.dispatch``
+and ``server.postprocess`` here, the Batcher's ``seq`` on a request's
+queue and postprocess spans across threads, and ``engine.search``,
+``engine.profile``, ``engine.launch``, ``engine.top_k`` and
+``engine.collect`` in models/engine.py.
 """
 
 from __future__ import annotations
 
 import functools
 import ipaddress
+import itertools
 import json
 import socketserver
 import sys
@@ -69,6 +78,8 @@ import threading
 import time
 import traceback
 from dataclasses import replace
+
+from swimm_tpu_torch.utils.metrics import record, span
 
 LOG_PREFIX = "swimm_tpu_torch serve:"
 
@@ -389,7 +400,9 @@ class Batcher:
         self._max = int(max_batch_queries)
         self._timeout = float(request_timeout) if request_timeout else None
         self._cv = threading.Condition()
-        self._pending = []          # [(queries, opts, rid, box, event)]
+        # [(queries, opts, rid, box, event, seq, perf_counter at enqueue)]
+        self._pending = []
+        self._seq = itertools.count()   # the spans' request id (seq)
         self._stopping = False
         self._stderr = stderr if stderr is not None else sys.stderr
         self.n_dispatches = 0       # searches actually issued
@@ -409,11 +422,12 @@ class Batcher:
             return {**rid, "error": str(e) or repr(e),
                     "error_kind": "bad_request"}
         box, ev = {}, threading.Event()
-        item = (queries, opts, rid, box, ev)
         with self._cv:
             if self._stopping:
                 return {**rid, "error": "server is shutting down",
                         "error_kind": "unavailable"}
+            item = (queries, opts, rid, box, ev, next(self._seq),
+                    time.perf_counter())
             self._pending.append(item)
             self._cv.notify()
         if ev.wait(self._timeout):
@@ -451,6 +465,10 @@ class Batcher:
     def _drain_once(self):
         """Dispatch ONE coalesced search over the queued requests (up to
         max_batch_queries queries; the rest stay queued)."""
+        with span("batcher.dispatch"):
+            self._dispatch()
+
+    def _dispatch(self):
         with self._cv:
             batch, n = [], 0
             while self._pending and n + len(self._pending[0][0]) <= self._max:
@@ -460,6 +478,9 @@ class Batcher:
             if not batch and self._pending:
                 # a single oversized request: served alone, not starved
                 batch = [self._pending.pop(0)]
+        t_pop = time.perf_counter()
+        for item in batch:
+            record("batcher.queue", item[6], t_pop, seq=item[5])
         if not batch:
             return
         all_q = [q for item in batch for q in item[0]]
@@ -476,11 +497,12 @@ class Batcher:
             met["batched_requests"] = len(batch)
             met["batched_queries"] = len(all_q)
             off = 0
-            for queries, opts, rid, box, ev in batch:
+            for queries, opts, rid, box, ev, seq, _ in batch:
                 rs = results[off:off + len(queries)]
                 off += len(queries)
-                resp = self._srv._postprocess(queries, rs, metrics,
-                                              opts, rid)
+                with span("server.postprocess", seq=seq):
+                    resp = self._srv._postprocess(queries, rs, metrics,
+                                                  opts, rid)
                 resp["metrics"] = met
                 box["resp"] = resp
                 ev.set()
@@ -488,7 +510,7 @@ class Batcher:
             # every queued client; answer the batch and keep going
             print(f"{LOG_PREFIX} batch dispatch failed: {e!r}\n"
                   f"{traceback.format_exc()}", file=self._stderr, flush=True)
-            for queries, opts, rid, box, ev in batch:
+            for queries, opts, rid, box, ev, *_ in batch:
                 if "resp" not in box:
                     box["resp"] = {**rid,
                                    "error": f"batch dispatch failed: {e}",
