@@ -17,10 +17,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      tile_m = 8 to 1024 (1 to 32 strips, tail strips, three and four
      workers), one-tile blocks, 64 to 512 lanes, gaps 10/2, 5/0, 0/3, 0/0,
      random carries in with lanes whose score is their incoming F alone,
-     scores and both carries out, and three chained tiles against one pass);
-     the packed kernel on packs with a planted homolog in the
-     query just above another, a one-group query, a pack filled to its
-     bucket, a pack with a large unused tail, gap_extend=0 and gap_open=0,
+     scores and both carries out, and three chained tiles against one pass;
+     the same cases in its pair form (16-bit lane pairs, carries packed)
+     against its plain version, three chained pair-form tiles against one
+     int32 pass, and the 16-bit guard through score_tiles_long: lanes past
+     32,767 (a 2,980-aa W run under BLOSUM62; a matrix with A/A 1,000), at
+     T - 1 and at T, over several blocks and query tiles, equal to the C
+     oracle with the flagged blocks re-scored and counted exactly, a wrong
+     score without that pass, and the int32 form for gaps past the 16-bit
+     bound and for V = 96); the packed kernel on packs with a planted
+     homolog in the query just above another, a one-group query, a pack
+     filled to its bucket, a pack with a large unused tail, gap_extend=0
+     and gap_open=0,
      and on packs cut to M = 8, 40, 72 and 160 rows (one strip, an 8-row
      tail strip, odd strip counts) with a query that straddles a strip
      boundary and a homolog planted in its rows just above the boundary;
@@ -48,7 +56,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      uploaded once, searched once as warm-up, then timed with the kernels'
      launch counters set to 0 just before and read just after;
   4. one 5,000-aa query (a query-0 segment inside random sequence) through
-     the query-tiled path (5 tiles of 1024 rows), counted the same way;
+     the query-tiled path (5 tiles of 1024 rows), counted the same way, all
+     5 in kernel 2's pair form, and none re-scored;
   5. the packed path: the same 20 queries with query_pack=True (one launch
      per pack), hit lists equal to the per-query search's hit for hit; then
      100 short queries (30-120 aa), per query against packed, equal hits;
@@ -61,7 +70,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      each query's top hit a planted homolog;
   8. all five kernels against their plain versions at the main path's full
      size, bit-exact (the whole tile stream at query 0's m; the first two
-     1024-row tiles of the long query, scores and both outgoing carries;
+     1024-row tiles of the long query, scores and both outgoing carries, in
+     kernel 2's int32 form and in its pair form, whose time is kernel 2's
+     and the int32 form's beside it;
      the widest pack over the whole stream; every chunk at query 0's m in
      one launch, also equal to kernel 1's lanes;
      the long query's third tile over every chunk with the second tile's
@@ -158,13 +169,16 @@ phase 8, its launches counted apart from the kernels line:
      query of 1-1,199 or 2,049-3,999 aa, 1-3 blocks of 32-256 positions
      with adversarial lanes, a ceiling of 127 or 32,767), every route a
      round can take (kernels 4 and 1 with its ceiling, or 5 and 2, on the
-     blocks as chunks and as a ragged stream; kernel 3 on a pack of 2-6 new
+     blocks as chunks and as a ragged stream, and kernel 2 on a planted
+     stream with lanes past 32,767 in both lane forms; kernel 3 on a pack
+     of 2-6 new
      queries; the ladder) equal to the C oracle, until all 8 matrices and
      the routes of kernels 1-5 have run (at most 64 rounds); (b)
      acceptance config 1: every lane of score_db over 10,000 sequences
      equal to the C oracle; (c) one fuzz_packed round (3,000 sequences,
      per query against packed, the oracle on a top hit); kernels 1-5 must
-     each have launched in the phase.
+     each have launched in the phase, kernel 2's launches by lane form and
+     its re-scored blocks printed (one planted block a long round).
 Then the measurement entry points (swimm_tpu_torch.bench and
 benchmarks/bench_*.py), before phase 8, on the phase-3 DB and queries,
 their launches counted apart from the kernels line:
@@ -336,6 +350,175 @@ def compare_qtile_carry_form(rng, errs: dict) -> None:
              f" vs one pass of {3 * tile_m}: max_abs_err={e}")
 
 
+def compare_qtile_pairs(rng, errs: dict) -> None:
+    """sw_ragged_qtile_kernel's pair form against score_qtile_pairs_ref,
+    scores and both outgoing carries (lane pairs): tile_m = 8 to 1024,
+    blocks of one tile beside long ones, 64 to 512 lanes, gaps 10/2, 5/0,
+    0/3 and 0/0, random carries in with lanes whose score is their incoming
+    F alone; three chained tiles against one pass; then the 16-bit guard
+    through score_tiles_long: lanes past 32,767 (a 2,980-aa W run under
+    BLOSUM62), at T - 1 and at T, over several blocks and query tiles,
+    equal to the C oracle, the flagged blocks counted exactly, a wrong score
+    without the int32 pass, and the int32 form where the pair form does
+    not fit."""
+    from swimm_tpu_torch.alphabet import ALPHABET, PAD_CODE
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import cref, longquery, scorer
+    k2 = "sw_ragged_qtile_kernel"
+    lq = longquery
+    for counts, V, tile_m, go, ge in (
+            ([1, 5, 1, 3], 128, 8, 10, 2), ([1, 4, 2], 128, 32, 5, 0),
+            ([2, 1, 6], 128, 40, 0, 3), ([1, 3, 1], 64, 64, 0, 0),
+            ([3, 1, 7], 128, 72, 10, 2), ([1, 2, 5], 256, 104, 5, 0),
+            ([1, 6, 2], 128, 1024, 10, 2), ([2, 1, 3], 512, 72, 0, 3),
+            ([1, 3], 64, 1024, 5, 0), ([1, 2], 256, 1024, 0, 0),
+            ([1, 1, 1], 128, 104, 0, 3), ([4, 1], 128, 1024, 0, 3),
+            ([2, 3], 512, 1024, 10, 2)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
+        rs = scorer.row_starts(outrow, n_rows)
+        hc, fc, mask, want = random_carries(rng, tiles, rs)
+        hc, fc = lq.to_pairs(hc), lq.to_pairs(fc)
+        qp = profile(rng, tile_m)
+        ref = lq.score_qtile_pairs_ref(tiles, outrow, n_rows, qp, go, ge,
+                                       hc, fc)
+        got = lq.score_qtile_pairs(tiles, outrow, n_rows, qp, go, ge,
+                                   hc.clone(), fc.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(ref[0][mask], want):
+            raise AssertionError(f"{k2} pairs tile_m={tile_m}: the planted F "
+                                 "does not give its lanes' scores")
+        e = max(max_err(g, r) for g, r in zip(got, ref))
+        errs[k2] = max(errs[k2], e)
+        note(f"{k2} pair form V={V} tile_m={tile_m} gaps={go}/{ge} blocks "
+             f"{counts}, random carries in (planted F in {int(mask.sum())} "
+             f"lanes), scores + carries out: max_abs_err={e}")
+    for counts, V, tile_m, go, ge in (([1, 4, 2], 128, 40, 10, 2),
+                                      ([2, 5, 1], 128, 104, 0, 3),
+                                      ([1, 3], 256, 72, 5, 0),
+                                      ([1, 2], 128, 512, 0, 0)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
+        rs = scorer.row_starts(outrow, n_rows)
+        hc, fc, _, _ = random_carries(rng, tiles, rs)
+        qp = profile(rng, 3 * tile_m)
+        ref = lq.score_qtile_ref(tiles, outrow, n_rows, qp, go, ge, hc, fc)
+        best, h, f = None, lq.to_pairs(hc), lq.to_pairs(fc)
+        for qt in range(3):
+            out, h, f = lq.score_qtile_pairs(
+                tiles, outrow, n_rows,
+                qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), go, ge, h,
+                f)
+            best = out if best is None else torch.maximum(best, out)
+        torch.cuda.synchronize()
+        e = max(max_err(g, r) for g, r in zip(
+            (best, lq.from_pairs(h), lq.from_pairs(f)), ref))
+        errs[k2] = max(errs[k2], e)
+        note(f"{k2} pair form, three chained tiles of {tile_m} rows V={V} "
+             f"gaps={go}/{ge} vs one int32 pass of {3 * tile_m}: "
+             f"max_abs_err={e}")
+
+    # the 16-bit guard: lanes past 32,767, at T - 1 and at T
+    W, C, H = (ALPHABET.index(a) for a in "WCH")
+    blosum = get_matrix("BLOSUM62")
+    big = blosum.copy()
+    big[0, 0], big[1, 1], big[2, 2] = 1000, 100, 1
+    cases = [  # (what, matrix, query, {(block, lane): codes}, blocks, L,
+        #         tile_m, {(block, lane): score})
+        ("BLOSUM62 W run", blosum,
+         np.concatenate([rng.integers(2, 20, 40), [C], [W] * 2980, [H],
+                         rng.integers(2, 20, 40)]),
+         {(0, 1): [W] * 2980, (1, 7): [C] + [W] * 2980 + [H],
+          (1, 20): [W] * 2977 + [H], (2, 33): [C] + [W] * 2977},
+         3, 3008, 1024, {(0, 1): 32780, (1, 7): 32797, (1, 20): 32755,
+                         (2, 33): 32756}),
+        ("A/A 1,000", big,
+         np.concatenate([[0] * 33, [1] * 7, [2] * 67,
+                         rng.integers(3, 20, 30)]),
+         {(0, 3): [0] * 33, (1, 40): [0] * 31 + [1] * 7 + [2] * 66,
+          (2, 63): [0] * 31 + [1] * 7 + [2] * 67},
+         4, 128, 8, {(0, 3): 33000, (1, 40): 31766, (2, 63): 31767})]
+    for what, mat, q, planted, n_blocks, L, tile_m, scores in cases:
+        V = 128
+        codes = np.full((n_blocks, L, V), PAD_CODE, np.int8)
+        for b in range(n_blocks):
+            for v in range(V):
+                n = int(rng.integers(1, min(300, L)))
+                codes[b, :n, v] = rng.integers(2, 20, n)
+        for (b, v), x in planted.items():
+            codes[b, :, v] = PAD_CODE
+            codes[b, :len(x), v] = x
+        seqs = [codes[b, :, v][:int(np.argmax(np.append(
+            codes[b, :, v], PAD_CODE) == PAD_CODE))].astype(np.uint8)
+            for b in range(n_blocks) for v in range(V)]
+        q = np.asarray(q, np.uint8)
+        exp = cref.sw_score_many(q, seqs, mat, 10, 2).reshape(n_blocks, V)
+        if any(exp[b, v] != sc for (b, v), sc in scores.items()):
+            raise AssertionError(f"{what}: planted scores {scores} differ "
+                                 "from the oracle")
+        tiles = torch.from_numpy(codes.reshape(-1, 32, V)).cuda()
+        outrow = torch.from_numpy(np.repeat(
+            np.arange(n_blocks, dtype=np.int32), L // 32)).cuda()
+        qp = torch.from_numpy(build_query_profile(q, mat, 8)).cuda()
+        n_rows = n_blocks
+        limit = lq.pair_limit(int(qp.max()))
+        flagged = int((exp >= limit).any(axis=1).sum())
+        before = (lq.score_tiles_long.rescored_blocks,
+                  lq.score_qtile_pairs.launches, lq.score_qtile.launches)
+        got = lq.score_tiles_long(tiles, outrow, n_rows, qp, 10, 2,
+                                  tile_m=tile_m).cpu().numpy()
+        counted = (lq.score_tiles_long.rescored_blocks - before[0],
+                   lq.score_qtile_pairs.launches - before[1],
+                   lq.score_qtile.launches - before[2])
+        qpp, _ = lq.pad_to_tiles(qp, tile_m)   # the pair form alone
+        h = torch.zeros((*tiles.shape[:2], V // 2), dtype=torch.int32,
+                        device=tiles.device)
+        f = torch.full_like(h, lq.pair_word(-12))
+        raw = None
+        for qt in range(qpp.shape[1] // tile_m):
+            out, h, f = lq.score_qtile_pairs(
+                tiles, outrow, n_rows,
+                qpp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), 10, 2,
+                h, f)
+            raw = out if raw is None else torch.maximum(raw, out)
+        raw = raw.cpu().numpy()
+        one = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, 10,
+                                     2).cpu().numpy()
+        n_qt = -(-qp.shape[1] // tile_m)
+        low = exp < limit
+        e = int(np.abs(got.astype(np.int64) - exp).max())
+        errs[k2] = max(errs[k2], e, int(np.abs(one.astype(np.int64)
+                                              - exp).max()))
+        if counted != (flagged, n_qt, n_qt) or not flagged:
+            raise AssertionError(f"{what}: rescored blocks, pair and int32 "
+                                 f"launches {counted}, expected "
+                                 f"{(flagged, n_qt, n_qt)}")
+        if not (np.array_equal(raw[low], exp[low])
+                and (raw[~low] >= limit).all() and (raw != exp).any()):
+            raise AssertionError(f"{what}: the pair form alone is not exact "
+                                 "below T, at least T above it and wrong "
+                                 "past 32,767")
+        note(f"{k2} 16-bit guard, {what} (T={limit}, lanes "
+             f"{sorted(scores.values())}), {n_blocks} blocks x {n_qt} query "
+             f"tiles: max_abs_err={e} vs the C oracle; rescored blocks "
+             f"{counted[0]} of {flagged} flagged, launches pairs {counted[1]}"
+             f" int32 {counted[2]}; without the int32 pass "
+             f"{int((raw != exp).sum())} lanes wrong")
+    # where the pair form does not fit: gaps past the 16-bit bound, and
+    # lanes that fill no whole warp of pairs
+    for V, go, ge in ((128, 16000, 385), (96, 10, 2)):
+        tiles, outrow, n_rows = ragged_case(rng, [2, 1, 3], V)
+        qp = profile(rng, 2064)
+        before = lq.score_qtile_pairs.launches
+        got = lq.score_tiles_long(tiles, outrow, n_rows, qp, go, ge)
+        ref = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, go, ge)
+        torch.cuda.synchronize()
+        if lq.score_qtile_pairs.launches != before:
+            raise AssertionError(f"V={V} gaps {go}/{ge} took the pair form")
+        errs[k2] = max(errs[k2], max_err(got, ref))
+        note(f"{k2} V={V} gaps {go}/{ge} (the int32 form): max_abs_err="
+             f"{max_err(got, ref)}")
+
+
 def compare_kernels(errs: dict) -> None:
     """Phase 2: both kernels vs their plain versions, on the card."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -414,6 +597,7 @@ def compare_kernels(errs: dict) -> None:
     note(f"{k2} one tile, random carries in, scores + carries out: "
          f"max_abs_err={e}")
     compare_qtile_carry_form(rng, errs)
+    compare_qtile_pairs(rng, errs)
 
 
 def chunk_case(rng, B, L, V):
@@ -1923,6 +2107,7 @@ def card_fuzz(search_kernels, counted) -> dict:
     round at the reference's sizes. Each of kernels 1-5 must have launched.
     Nothing is caught. Returns the numbers and the phase's seconds."""
     from swimm_tpu_torch.benchmarks import acceptance, fuzz
+    from swimm_tpu_torch.ops import longquery
     t_phase = time.perf_counter()
     out = {"seed": 0, "matrices": [], "routes": [], "ceilings": [],
            "long_rounds": 0}
@@ -1968,11 +2153,21 @@ def card_fuzz(search_kernels, counted) -> dict:
         out["fuzz_packed"] = {"queries": len(packed_round["queries"]),
                               "s": time.perf_counter() - t}
 
+    longquery.score_tiles_long.rescored_blocks = 0
     _, seen = counted(run, main=False)
     out["launches"] = {name: seen[name] for name in search_kernels}
     for name in search_kernels:
         if seen[name] <= 0:
             raise AssertionError(f"phase 20: {name} was not launched")
+    # kernel 2 by lane form, and the planted blocks scored again in int32
+    # (one a long round: its lanes past 32,767 and at the limit)
+    out["kernel2"] = {"pairs": longquery.score_qtile_pairs.launches,
+                      "int32": longquery.score_qtile.launches,
+                      "rescored_blocks":
+                          longquery.score_tiles_long.rescored_blocks}
+    if out["kernel2"]["rescored_blocks"] != out["long_rounds"]:
+        raise AssertionError(f"phase 20: {out['kernel2']} after "
+                             f"{out['long_rounds']} long rounds")
     out["phase_s"] = time.perf_counter() - t_phase
     note(f"phase 20 (card fuzz) {out['phase_s']:.1f} s: {out['rounds']} "
          f"rounds from seed 0 ({out['long_rounds']} long) in "
@@ -1982,7 +2177,7 @@ def card_fuzz(search_kernels, counted) -> dict:
          f"({out['config1']['s']:.1f} s); "
          f"fuzz_packed round of {out['fuzz_packed']['queries']} queries "
          f"equal ({out['fuzz_packed']['s']:.1f} s); launches "
-         f"{out['launches']}")
+         f"{out['launches']}; kernel 2 {out['kernel2']}")
     return out
 
 
@@ -2189,8 +2384,24 @@ def main(argv=None) -> int:
     note(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
     phases = {}
+
+    class Kernel2:
+        """sw_ragged_qtile_kernel's launches in both lane forms, read and
+        set to 0 like one wrapper's counter (the pair form's own:
+        longquery.score_qtile_pairs.launches)."""
+
+        @property
+        def launches(self):
+            return (longquery.score_qtile.launches
+                    + longquery.score_qtile_pairs.launches)
+
+        @launches.setter
+        def launches(self, n):
+            longquery.score_qtile.launches = n
+            longquery.score_qtile_pairs.launches = 0
+
     counters = {"sw_ragged_kernel": scorer.score_tiles,
-                "sw_ragged_qtile_kernel": longquery.score_qtile,
+                "sw_ragged_qtile_kernel": Kernel2(),
                 "sw_ragged_packed_kernel": scorer.score_tiles_packed,
                 "sw_chunk_kernel": scorer.score_chunks,
                 "sw_chunk_qtile_kernel": longquery.score_chunks_qtile,
@@ -2287,13 +2498,18 @@ def main(argv=None) -> int:
     n_qt = -(-m_long // longquery.LONG_TILE_M)
     assert engine.select_mode(m_long) == "tiles_long"
     search(packed, [long_q], config)                     # warm-up
+    longquery.score_tiles_long.rescored_blocks = 0
     (long_res, long_met), seen = counted(
         lambda: search(packed, [long_q], config))
+    forms = {"pairs": longquery.score_qtile_pairs.launches,
+             "int32": longquery.score_qtile.launches,
+             "rescored_blocks": longquery.score_tiles_long.rescored_blocks}
     note(f"{LONG_LEN}-aa query: {long_met.seconds:.3f} s, "
-         f"{long_met.gcups:.1f} GCUPS, launches {seen}")
-    if seen["sw_ragged_qtile_kernel"] != n_qt:
-        raise AssertionError(f"expected {n_qt} query-tile launches, got "
-                             f"{seen}")
+         f"{long_met.gcups:.1f} GCUPS, launches {seen}; kernel 2 by lane "
+         f"form and the blocks scored again {forms}")
+    if seen["sw_ragged_qtile_kernel"] != n_qt or forms["pairs"] != n_qt:
+        raise AssertionError(f"expected {n_qt} query-tile launches in the "
+                             f"pair form, got {seen}, {forms}")
 
     # single-query latency (first query alone)
     _, one_met = search(packed, queries[:1], config)
@@ -2466,34 +2682,60 @@ def main(argv=None) -> int:
          f"alone: {k1_tail['ms_100_longest_alone']:.3f} ms")
     # kernel 2 on the long query's first two 1024-row tiles: fresh carries
     # in, then the first tile's carries in; the kernel updates its carries
-    # in place, so it gets clones and the plain version the originals
+    # in place, so it gets clones and the plain version the originals. The
+    # pair form (the main path's) on the same tiles, its carries in lane
+    # pairs: no lane here comes near its limit, so its plain version is
+    # the int32 plain walk's scores and carries, packed
     tm = longquery.LONG_TILE_M
     hc = torch.zeros(tiles.shape, dtype=torch.int32, device="cuda")
     fc = torch.full(tiles.shape, scorer.NEG, dtype=torch.int32,
                     device="cuda")
+    half = (*tiles.shape[:2], V // 2)
+    hp = torch.zeros(half, dtype=torch.int32, device="cuda")
+    fp = torch.full(half, longquery.pair_word(-12), dtype=torch.int32,
+                    device="cuda")
+    limit = longquery.pair_limit(int(qp_l.max()))
     e2 = 0
     p2_ms = None
     for qt in range(2):
         qp2 = qp_l[:, qt * tm:(qt + 1) * tm].contiguous()
         got2 = longquery.score_qtile(tiles, outrow, n_rows, qp2, 10, 2,
                                      hc.clone(), fc.clone(), row_start)
+        gotp = longquery.score_qtile_pairs(tiles, outrow, n_rows, qp2, 10, 2,
+                                           hp, fp, row_start)
         ms, ref2 = timed(lambda: longquery.score_qtile_ref(
             tiles, outrow, n_rows, qp2, 10, 2, hc, fc, row_start))
         p2_ms = p2_ms if p2_ms is not None else ms
         e = max(max_err(g, r) for g, r in zip(got2, ref2))
+        ep = max(max_err(gotp[0], ref2[0]),
+                 max_err(longquery.from_pairs(gotp[1]), ref2[1]),
+                 max_err(longquery.from_pairs(gotp[2]), ref2[2]))
+        top = int(ref2[0].max())
+        if top >= limit:
+            raise AssertionError(f"query tile {qt}: a lane reached {top}, at "
+                                 f"or past the pair form's limit {limit}")
         note(f"sw_ragged_qtile_kernel vs plain, whole stream, query tile "
-             f"{qt}: scores + both carries max_abs_err={e}")
-        e2 = max(e2, e)
+             f"{qt}: scores + both carries max_abs_err={e}; the pair form "
+             f"max_abs_err={ep} (top score {top}, limit {limit})")
+        e2 = max(e2, e, ep)
         _, hc, fc = ref2
-        del got2, ref2
+        del got2, gotp, ref2
     errs["sw_ragged_qtile_kernel"] = max(errs["sw_ragged_qtile_kernel"], e2)
     m2 = qp2.shape[1]
     hk, fk = hc.clone(), fc.clone()   # timed in place; hc/fc (the second
     # tile's outgoing carries) are kept for kernel 5 below
-    k2_ms = cuda_ms(lambda: longquery.score_qtile(
+    k2_int32_ms = cuda_ms(lambda: longquery.score_qtile(
         tiles, outrow, n_rows, qp2, 10, 2, hk, fk, row_start))
     del hk, fk
-    w2 = walk_work(m2, 4 * n_rows * V + 16 * lanes_pos)
+    k2_ms = cuda_ms(lambda: longquery.score_qtile_pairs(
+        tiles, outrow, n_rows, qp2, 10, 2, hp, fp, row_start))
+    del hp, fp
+    w2 = walk_work(m2, 4 * n_rows * V + 8 * lanes_pos)
+    k2_int32_load = rl.walk_load(rl.walk_sass_per_cell(
+        "sw_ragged", "sw_ragged_qtile_kernelILb0E"))
+    note(f"sw_ragged_qtile_kernel one 1024-row tile over the whole stream: "
+         f"pair form {k2_ms:.3f} ms, int32 form {k2_int32_ms:.3f} ms "
+         f"(SASS a cell {k2_int32_load})")
     phases["full_size_k1_k2_s"] = time.perf_counter() - t
 
     # kernel 3 on the widest pack over the whole stream
@@ -2641,7 +2883,8 @@ def main(argv=None) -> int:
          f"T={T} V={V} m={m1}", "sw_ragged_kernelILb0E"),
         ("sw_ragged_qtile_kernel", "sw_ragged.cu",
          "swimm_tpu/ops/longquery.py:208", k2_ms, p2_ms, w2,
-         f"T={T} V={V} tile_m={m2}", "sw_ragged_qtile_kernel"),
+         f"T={T} V={V} tile_m={m2}, pair form (int32 form "
+         f"{k2_int32_ms:.3f} ms)", "sw_ragged_qtile_kernelILb1E"),
         ("sw_ragged_packed_kernel", "sw_ragged.cu",
          "swimm_tpu/ops/pallas_scorer.py:434", k3_ms, p3_ms, w3,
          f"T={T} V={V} M={wide.M} queries={len(wide.entries)}",
@@ -2670,7 +2913,8 @@ def main(argv=None) -> int:
     for (name, src, replaces, ms, plain_ms, (nbytes, cells), shape,
          sass_name) in rows:
         b, by = bound(nbytes, opc * cells, int_rate)
-        load = rl.walk_load(rl.walk_sass_per_cell(src[:-3], sass_name))
+        load = rl.walk_load(rl.walk_sass_per_cell(
+            src[:-3], sass_name, 2 if sass_name.endswith("ILb1E") else 1))
         pb, pby = measured_bound(nbytes, cells, load)
         kernels.append(
             {"name": name, "route": "cuda",

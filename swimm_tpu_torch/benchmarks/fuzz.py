@@ -17,12 +17,21 @@ np.minimum), with exact equality:
   k5      longquery.score_chunk_long (sw_chunk_qtile)     qlen > 2048
   k1      scorer.score_tiles (sw_ragged_kernel<CEIL>)     qlen <= 2048
   k2      longquery.score_tiles_long (sw_ragged_qtile)    qlen > 2048
+  k2_planted  score_tiles_long on the planted stream      qlen > 2048
+  k2_int32    longquery.score_tiles_long_int32 on it      qlen > 2048
   k3      scorer.score_tiles_packed (sw_ragged_packed)    every round
   ladder  ladder.score_chunk_adaptive (default tiers)     qlen <= 2048
 
 k4 and k5 are the reference's routes. k1 and k2 take the same blocks cut
 as a ragged tile stream, each block trimmed to its longest lane rounded up
-to 32 rows, so the blocks of one stream differ in length. k3 takes a pack
+to 32 rows, so the blocks of one stream differ in length. No lane of a
+draw can score 32,767 (its blocks hold at most 256 residues), so a long
+round also scores a planted stream (``planted``, drawn from nothing: the
+round's matrix and gaps): a run of the matrix's best-scoring residue as
+the query, one block of 64 lanes that hold runs scoring past 32,767, at the
+pair form's limit and just below it; k2_planted takes it through
+score_tiles_long (kernel 2's pair form, then its int32 pass over the
+flagged block), k2_int32 through the int32 form alone. k3 takes a pack
 of 2-6 new queries of 1-300 aa, drawn from a second generator
 default_rng([seed, round]) so that the shared draws stay seed for seed
 equal, packed under the round's matrix and scored over that stream under
@@ -33,7 +42,8 @@ query batches against a 3,000-sequence DB per query and packed, hit for
 hit, and the C oracle on one top hit a round.
 
 Run: python -m swimm_tpu_torch.benchmarks.fuzz [--rounds 12] [--seed 0]
-[--packed] [--device cpu]. One JSON line a round, then
+[--packed] [--device cpu]. One JSON line a round, one of kernel 2's
+launches by lane form and its re-scored blocks, then
 {"fuzz": "PASS"|"FAIL", ...}; exit 1 on any mismatch, whose first
 differing (route, block, lane, got, exp) goes to stderr. Without --device
 cpu it runs on the card, and raises when there is none.
@@ -64,7 +74,9 @@ MATRICES = ["BLOSUM45", "BLOSUM50", "BLOSUM62", "BLOSUM80", "BLOSUM90",
             "PAM30", "PAM70", "PAM250"]
 V = 128            # lanes per block, as fuzz_tpu.py
 SHORT_MAX = 2048   # longest query on the one-pass routes (max_query_pad)
-ROUTES = ("k4", "k5", "k1", "k2", "k3", "ladder")
+ROUTES = ("k4", "k5", "k1", "k2", "k2_planted", "k2_int32", "k3",
+          "ladder")
+PAIR_MAX = 32767   # the largest value of a 16-bit lane
 
 
 @dataclass
@@ -152,6 +164,28 @@ def ragged_stream(draw: Draw):
     return tiles, outrow, n_blocks
 
 
+def planted(draw: Draw):
+    """A long round's planted stream: (query, lane sequences, (tiles (T, 32,
+    64) int8, outrow, 1)). The query is a run of the residue whose match
+    scores most under the round's matrix (d), long enough that the run alone
+    scores past 32,767; lane 0 holds that run, lane 1 the shortest run that
+    reaches the pair form's limit 32,767 - d (flagged, and exact), lane 2 one
+    residue less (not flagged); the other lanes are empty."""
+    mat = get_matrix(draw.matrix)
+    best = int(np.argmax(np.diag(mat)[:20]))
+    d = int(mat[best, best])
+    n = PAIR_MAX // d + 1                 # n * d > 32,767
+    k = -(-(PAIR_MAX - d) // d)           # k * d >= the limit
+    query = np.full(n, best, np.uint8)
+    seqs = [query, query[:k], query[:k - 1]] + [query[:0]] * 61
+    L = round_up(n, 32)
+    codes = np.full((L, 64), PAD_CODE, np.int8)
+    for lane, x in enumerate(seqs):
+        codes[:len(x), lane] = x
+    return query, seqs, (codes.reshape(-1, 32, 64),
+                         np.zeros(L // 32, np.int32), 1)
+
+
 def first_mismatch(route: str, got: np.ndarray, exp: np.ndarray):
     """(route, block, lane, got, exp) of the first differing lane, or
     None; for k3's (queries, n_blocks, V) planes the route names the
@@ -192,6 +226,16 @@ def run_round(draw: Draw, device, rng2: np.random.Generator) -> dict:
         routes["k2"] = longquery.score_tiles_long(tiles, outrow, n_rows, qp,
                                                   go, ge, row_start=row_start)
         expected.update(k5=exact, k2=exact)
+        pq, pseqs, (pt, po, pn) = planted(draw)
+        pt, po = torch.from_numpy(pt).to(dev), torch.from_numpy(po).to(dev)
+        pqp = torch.from_numpy(build_query_profile(pq, draw.matrix,
+                                                   m_multiple=8)).to(dev)
+        routes["k2_planted"] = longquery.score_tiles_long(pt, po, pn, pqp,
+                                                          go, ge)
+        routes["k2_int32"] = longquery.score_tiles_long_int32(pt, po, pn,
+                                                              pqp, go, ge)
+        pexp = cref.sw_score_many(pq, pseqs, mat, go, ge).reshape(pn, 64)
+        expected.update(k2_planted=pexp, k2_int32=pexp)
     else:
         routes["k4"] = scorer.score_chunk(codes, qp, go, ge, ceiling=ceiling)
         routes["k1"] = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
@@ -221,9 +265,15 @@ def run_round(draw: Draw, device, rng2: np.random.Generator) -> dict:
 
 
 def fuzz(rounds: int, seed: int, device=None) -> int:
-    """fuzz_tpu.main's loop on `device`; returns the failed rounds."""
+    """fuzz_tpu.main's loop on `device`; returns the failed rounds. Before
+    the summary line, one line of kernel 2's launches in each lane form
+    (on a card) and the blocks it scored again in int32 (one a long round,
+    the planted stream's)."""
     rng = np.random.default_rng(seed)
     failures = 0
+    before = (longquery.score_qtile_pairs.launches,
+              longquery.score_qtile.launches,
+              longquery.score_tiles_long.rescored_blocks)
     for r in range(rounds):
         draw = draw_round(rng)
         res = run_round(draw, device, np.random.default_rng([seed, r]))
@@ -239,6 +289,11 @@ def fuzz(rounds: int, seed: int, device=None) -> int:
             print(f"  MISMATCH seed {seed} round {r} route {route} block {b} "
                   f"lane {lane}: got {got}, exp {exp}", file=sys.stderr)
             failures += 1
+    print(json.dumps({"kernel2": {
+        "pairs": longquery.score_qtile_pairs.launches - before[0],
+        "int32": longquery.score_qtile.launches - before[1],
+        "rescored_blocks": (longquery.score_tiles_long.rescored_blocks
+                            - before[2])}}), flush=True)
     print(json.dumps({"fuzz": "PASS" if not failures else "FAIL",
                       "rounds": rounds, "failures": failures}), flush=True)
     return failures

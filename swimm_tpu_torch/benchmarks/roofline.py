@@ -75,18 +75,18 @@ WALK = Path(__file__).resolve().parents[1] / "csrc" / "sw_walk_hg.cuh"
 # (csrc/sw_walk_hg.cuh hg_step, one row r of one db position):
 #   (class, per cell, lines of sw_walk_hg.cuh, what each line holds)
 WALK_TERMS = (
-    ("half_rate", 1.0, (285,), "__viaddmax_s32(e[r], nge, hg[r])"),
-    ("half_rate", 1.0, (286,), "__viaddmax_s32_relu(diag,"),
-    ("half_rate", 1.0, (297,), "__viaddmax_s32(f, -goe, t0g)"),
-    ("half_rate", 1.0, (299,), "__viaddmax_s32(f, nge, t0g)"),
-    # the running maximum, two rows per instruction: :290 in kernels 1, 3
-    # and 4, :302 in the carry form (kernels 2 and 5)
-    ("half_rate", 0.5, (290, 302), "__vimax3_s32(gm[g], tprev,"),
-    ("full_rate", 1.0, (295,), "t0 - goe"),
-    ("shared_load", 1.0, (286,), "col[r * TABLE_CODES]"),
+    ("half_rate", 1.0, (339,), "__viaddmax_s32(e[r], nge, hg[r])"),
+    ("half_rate", 1.0, (340,), "__viaddmax_s32_relu(diag,"),
+    ("half_rate", 1.0, (351,), "__viaddmax_s32(f, -goe, t0g)"),
+    ("half_rate", 1.0, (353,), "__viaddmax_s32(f, nge, t0g)"),
+    # the running maximum, two rows per instruction: :344 in kernels 1, 3
+    # and 4, :356 in the carry form (kernels 2 and 5)
+    ("half_rate", 0.5, (344, 356), "__vimax3_s32(gm[g], tprev,"),
+    ("full_rate", 1.0, (349,), "t0 - goe"),
+    ("shared_load", 1.0, (340,), "col[r * TABLE_CODES]"),
 )
 # a VIMNMX in the SASS: on the half-rate pipe
-CEILING_TERM = ("half_rate", 1.0, (287,), "min(t0, ceiling)")
+CEILING_TERM = ("half_rate", 1.0, (341,), "min(t0, ceiling)")
 
 
 def ops_per_cell(m: int, ceiling: bool = False) -> dict:
@@ -214,15 +214,19 @@ def _library_sass(lib: str) -> dict:
 
 
 def walk_sass_per_cell(lib: str = "sw_ragged",
-                       function: str = "sw_ragged_kernelILb0E") -> dict:
+                       function: str = "sw_ragged_kernelILb0E",
+                       lanes: int = 1, sass: dict | None = None) -> dict:
     """Instructions per DP cell that a search kernel issues, by opcode,
     read from its SASS: the innermost loop over db positions of a 32-row
     strip (the loop with the fewest instructions whose VIADDMNMX count is
     a multiple of 4 x 32; 4 a cell), its instructions over its cells.
     ``function`` is a fragment of the kernel's SASS name in the library
     ``lib`` (default kernel 1 without the ceiling). What ops_per_cell
-    counts, and the addressing and bookkeeping it leaves out."""
-    sass = _library_sass(lib)
+    counts, and the addressing and bookkeeping it leaves out. lanes=2 reads
+    the pair form (kernel 2's sw_ragged_qtile_kernelILb1E), whose loop holds
+    two db positions and two lanes a row (4 VIADDMNMX a row, two cells).
+    sass: a parse_sass reading to count in place of the built library's."""
+    sass = _library_sass(lib) if sass is None else sass
     name = next((n for n in sass if function in n), None)
     if name is None:
         raise RuntimeError(f"no kernel {function!r} in the SASS of {lib}")
@@ -230,7 +234,7 @@ def walk_sass_per_cell(lib: str = "sw_ragged",
     for body in sass_loops(sass, name):
         n = sum(op.startswith("VIADDMNMX") for op in body)
         if n and n % (4 * 32) == 0:
-            strips.append((len(body), n // 4, body))
+            strips.append((len(body), lanes * (n // 4), body))
     if not strips:
         raise RuntimeError(f"no 32-row strip loop in the SASS of {name}")
     _, cells, body = min(strips, key=lambda s: s[:2])

@@ -15,7 +15,10 @@
 //                           one query tile of a long query, with the H/F
 //                           boundary rows carried in and out through device
 //                           memory, in place, on the carry form of the walk
-//                           of sw_walk_hg.cuh (four workers to a block).
+//                           of sw_walk_hg.cuh (four workers to a block); in
+//                           int32 lanes (<false>) or in 16-bit lane pairs
+//                           (<true>, the pair form: longquery.py says when
+//                           each runs).
 //   sw_ragged_packed_kernel replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_packed_kernel (via score_tiles_packed): a
 //                           PACKED multi-query profile, one score plane per
@@ -109,7 +112,13 @@ sw_ragged_kernel(const int8_t* __restrict__ tiles,
 // entry (real H of its bottom row, the F entering its first row) and the
 // tile's own bottom row on exit, updated in place. They may alias each
 // other's reads and writes inside the walk, so neither is __restrict__.
-// At most QTILE_WORKERS workers; the thread limit as kernel 1.
+// At most QTILE_WORKERS workers; the thread limit as kernel 1. PAIRS: the
+// pair form (sw_walk_hg.cuh), two lanes a thread, at most
+// QTILE_PAIR_WORKERS workers of V / 2 threads, ch/cf two (T, jt, V / 2)
+// streams of lane pairs, and each lane's maximum H over the tile's rows out,
+// exact in every lane that stays below 32,767 minus the largest profile
+// entry and at least that in every other.
+template <bool PAIRS>
 __global__ void __launch_bounds__(HG_MAX_THREADS, 1)
 sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
                        const int64_t* __restrict__ row_start, int V, int jt,
@@ -119,10 +128,22 @@ sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
   int npos;
   const int row = block_row();
   const int64_t base = block_span(row_start, row, jt, V, &npos);
-  const int smax = hg_walk_block<false, false>(
-      tiles + base, npos, V, qp, m, goe, ge, 0, HRows{ch + base, cf + base},
-      smem, PackedPlanes{});
-  if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
+  if constexpr (PAIRS) {
+    const unsigned gm = hg_walk_block_pairs(
+        tiles + base, npos, V, qp, m, goe, ge,
+        PairRows{reinterpret_cast<unsigned*>(ch) + base / 2,
+                 reinterpret_cast<unsigned*>(cf) + base / 2},
+        smem);
+    if (threadIdx.x < V / 2)
+      reinterpret_cast<int2*>(out + (int64_t)row * V)[threadIdx.x] =
+          make_int2(static_cast<short>(gm & 0xFFFFu) + goe,
+                    static_cast<short>(gm >> 16) + goe);
+  } else {
+    const int smax = hg_walk_block<false, false>(
+        tiles + base, npos, V, qp, m, goe, ge, 0,
+        HRows{ch + base, cf + base}, smem, PackedPlanes{});
+    if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
+  }
 }
 
 // Kernel 3: packed multi-query profile of m rows (m % 8 == 0; packs are
@@ -164,6 +185,31 @@ int launch_ragged(const void* tiles, const void* row_start, int n_rows, int V,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool PAIRS>
+int launch_qtile(const void* tiles, const void* row_start, int n_rows, int V,
+                 int jt, const void* qp, int m, int goe, int ge, void* ch,
+                 void* cf, void* out, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (PAIRS && V % 64) return static_cast<int>(cudaErrorInvalidValue);
+  int threads;
+  size_t shared;
+  // the pair form's workers are V / 2 threads
+  const cudaError_t err =
+      PAIRS ? hg_launch_shape(sw_ragged_qtile_kernel<true>, V / 2, m,
+                              QTILE_PAIR_WORKERS, &threads, &shared,
+                              pair_shared_ints)
+            : hg_launch_shape(sw_ragged_qtile_kernel<false>, V, m,
+                              QTILE_WORKERS, &threads, &shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw_ragged_qtile_kernel<PAIRS><<<n_rows, threads, shared,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, goe, ge, static_cast<int*>(ch),
+      static_cast<int*>(cf), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sw_ragged_launch(const void* tiles, const void* row_start,
@@ -184,19 +230,21 @@ extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,
                                       const void* qp, int m, int goe, int ge,
                                       void* ch, void* cf, void* out,
                                       void* stream) {
-  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
-  int threads;
-  size_t shared;
-  const cudaError_t err = hg_launch_shape(sw_ragged_qtile_kernel, V, m,
-                                          QTILE_WORKERS, &threads, &shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sw_ragged_qtile_kernel<<<n_rows, threads, shared,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(tiles),
-      static_cast<const int64_t*>(row_start), V, jt,
-      static_cast<const int*>(qp), m, goe, ge, static_cast<int*>(ch),
-      static_cast<int*>(cf), static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_qtile<false>(tiles, row_start, n_rows, V, jt, qp, m, goe, ge,
+                             ch, cf, out, stream);
+}
+
+// The pair form of kernel 2: V % 64 == 0, ch/cf (T, jt, V / 2) int32 lane
+// pairs; the caller keeps the profile and the gaps inside the 16-bit range
+// (longquery.pair_form_fits).
+extern "C" int sw_ragged_qtile_pairs_launch(const void* tiles,
+                                            const void* row_start, int n_rows,
+                                            int V, int jt, const void* qp,
+                                            int m, int goe, int ge, void* ch,
+                                            void* cf, void* out,
+                                            void* stream) {
+  return launch_qtile<true>(tiles, row_start, n_rows, V, jt, qp, m, goe, ge,
+                            ch, cf, out, stream);
 }
 
 extern "C" int sw_ragged_packed_launch(const void* tiles,

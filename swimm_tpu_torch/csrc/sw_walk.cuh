@@ -38,7 +38,8 @@
 // bandwidth. What it is sensitive to is device-memory LATENCY (one
 // dependent load per position per thread) and the latency between
 // dependent instructions: sw_walk_hg.cuh says how its walk meets both.
-// 16-bit lanes (two cells per instruction) are left to later work.
+// Kernel 2 also runs in 16-bit lane pairs, two cells per instruction
+// (sw_walk_hg.cuh, the pair form); the other kernels keep int32 lanes.
 
 #pragma once
 

@@ -141,6 +141,57 @@
 // runs 0.2% slower at S = 2; kernel 2 runs over twenty times as often on
 // the main paths, so both keep four workers. 126 registers, no spills.
 
+// The pair form (sw_ragged_qtile_kernel<true>, kernel 2 alone) runs the
+// carry form's recurrence in 16-bit lane pairs: thread u of a worker holds
+// lanes 2u and 2u + 1 in the two halves of every register (hg, e, f, the
+// diagonal, the running maximum), so a worker is V / 2 threads, one 16-bit
+// load a position brings both lanes' codes, and sm_90's .S16x2 add-max
+// forms do two cells an instruction. The staged profile holds S + goe in
+// both halves of a word; the pair's entry is lane 2u's word's low half and
+// lane 2u + 1's high half, one LOP3 (two 16-bit loads and a PRMT, or a
+// table per half, measured no faster). A row for two cells is
+//   en  = __viaddmax_s16x2_relu(e, -ge, hg)          E, kept >= 0
+//   t0g = __vadd2(__viaddmax_s16x2_relu(diag, S2, en), -goe)
+//   hg  = __viaddmax_s16x2(f, -goe, t0g);  f = __viaddmax_s16x2(f, -ge, t0g)
+//   gm  = __vimax3_s16x2(gm, hg, hg')                 2 rows
+// with __vadd2 of a constant one VIADD, off the half-rate pipe: 2.9
+// half-rate instructions a cell by the SASS (roofline.walk_sass_per_cell,
+// lanes=2) against the int32 form's 4.8. The carries are lane pairs too,
+// (T, jt, V / 2) int32 for H and for F: 4 bytes per (db position, lane)
+// against 8. The position loop is unrolled by two, which spares the moves
+// that carry hg into the next position's diagonal (0.77 → 0.62 IMAD a
+// cell, 127 registers and no spills against 128 and 12 bytes). Measured
+// (NVIDIA H100 80GB HBM3, 700 W; one 1,024-row tile over the 50,865-tile
+// stream, tools/qtile_variants.py in turns with the parent): int32 form
+// 75.16 ms; pair form 53.98 (goe subtracted by a VIADDMNMX), 50.03 (by
+// __vadd2), 48.60 (and unrolled by two); two workers 49.68, 49.17 unrolled;
+// lock steps of 16 positions 0.6% slower; loads one position ahead 2%
+// slower; the join by PRMT or from a 16-bit table no faster.
+//
+// Why the pair form is exact, and where it stops. .S16x2 additions wrap.
+// Every quantity of a lane is bounded by its H: hg = H - goe >= -goe,
+// E in [0, H - goe] (clamped at 0: t0 = max(diag, E, 0) is unchanged),
+// F >= -goe (after a row; the first tile's F enters as -goe, which acts
+// as no F since t0 >= 0), t0 in [0, H]. So every addition but two only
+// lowers a value that is at least -goe, and stays >= -2 goe >= -32,768
+// while 2 goe <= 32,768 (e - ge, f - goe, f - ge, t0 - goe, H - goe);
+// hg + goe, to the carries and the ring, gives back an H of the lane; and
+// S + goe fits 16 bits while max S + goe <= 32,767 (the wrapper checks
+// both, and V % 64 == 0: longquery.pair_form_fits). The one that can pass
+// 32,767 is the diagonal, hg(i-1,j-1) + S + goe = H(i-1,j-1) + S, and only
+// if H(i-1,j-1) > 32,767 - S >= T = 32,767 - max S. Take the first
+// addition of a lane that wraps: every value before it is exact, so the
+// H(i-1,j-1) it read was exact and at least T + 1, and that H is in the
+// lane's running maximum of some tile (this one, or the tile above, whose
+// bottom row the carry brings in). The maximum only grows, so the lane
+// reports at least T + 1 in that tile. A lane whose maxima all stay below
+// T never wrapped and is exact, scores and carries. longquery's
+// score_tiles_long takes the maximum over tiles and scores every DB block
+// with a lane at or above T again in int32 (kernel 2's int32 form on a
+// sub-stream of those blocks), or skips that check when the sum of the
+// profile's row maxima, a bound on every H, is below T. Lanes never mix:
+// every operation works on each half alone (the LOP3 join too).
+//
 #pragma once
 
 #include <climits>
@@ -159,6 +210,9 @@ constexpr int HG_MAX_WORKERS = 2;   // S at most (the carry form:
 // full rounds (two workers: kernel 2 0.2% slower, kernel 5 0.1-0.3% faster;
 // see the top of this file).
 constexpr int QTILE_WORKERS = 4;
+// S at most in the pair form (sw_ragged_qtile_kernel<true>: workers of V / 2
+// threads; see the top of this file).
+constexpr int QTILE_PAIR_WORKERS = 4;
 constexpr int HG_MAX_THREADS = 512; // S * V at most, so V at most
 constexpr int SEG_ROWS = 8;         // rows per segment group of a packed
                                     // multi-query profile
@@ -474,20 +528,207 @@ __device__ __forceinline__ int hg_walk_block(
 // allowed here. Workers per DB block: as many as max_workers (a constant
 // of the kernel), the thread limit and the strip count allow; workers
 // synchronise by warps, so lanes that do not fill whole warps get one.
+// The pair form passes its V / 2 threads a worker as V, and its own
+// shared_ints.
 template <class Kernel>
-inline cudaError_t hg_launch_shape(Kernel kernel, int V, int m,
-                                   int max_workers, int* threads,
-                                   size_t* shared) {
+inline cudaError_t hg_launch_shape(
+    Kernel kernel, int V, int m, int max_workers, int* threads,
+    size_t* shared, size_t (*shared_ints)(int, int) = hg_shared_ints) {
   int workers = HG_MAX_THREADS / V < max_workers ? HG_MAX_THREADS / V
                                                  : max_workers;
   const int n_strips = m / STRIP + (m % STRIP) / STRIP_TAIL;
   if (workers > n_strips) workers = n_strips;
   if (workers < 1 || V % 32) workers = 1;
   *threads = workers * V;
-  *shared = hg_shared_ints(workers, V) * sizeof(int);
+  *shared = shared_ints(workers, V) * sizeof(int);
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*shared));
+}
+
+// ---- The pair form (sw_ragged_qtile_kernel<true>; the top of this file
+// says why it is exact and what it costs) ----
+
+// The 16-bit value x in both halves of a word.
+__device__ __forceinline__ unsigned pair_of(int x) {
+  return (static_cast<unsigned>(x) & 0xFFFFu) * 0x10001u;
+}
+
+// A strip boundary row in the pair form: real H and the F entering the next
+// row of lanes 2u (low half) and 2u + 1 (high half) in one word each, two
+// streams of stride W = V / 2 words (the query tile's carries, or a ring
+// slot in shared memory).
+struct PairRows {
+  unsigned* h;
+  unsigned* f;
+};
+
+// Shared memory of a block of `workers` workers of W threads in the pair
+// form, in ints: one staged profile strip per worker, then two ring slots of
+// HG_STEP x W words of H and as many of F per boundary between
+// neighbouring workers (at least room for the final reduction).
+__host__ __device__ inline size_t pair_shared_ints(int workers, int W) {
+  const size_t prof = (size_t)STRIP * TABLE_CODES;
+  const size_t ring = (size_t)(workers - 1) * 2 * HG_STEP * W * 2;
+  const size_t red = workers > 1 ? (size_t)workers * W : 0;
+  return (size_t)workers * prof + (ring > red ? ring : red);
+}
+
+// hg_step in the pair form: one step of a strip of R rows for lanes 2u and
+// 2u + 1, n db positions from `codes` (one 16-bit load a position gives
+// both lanes' codes; stride W). top and bot as in the carry form.
+template <int R>
+__device__ __forceinline__ void hg_step_pairs(
+    unsigned (&hg)[STRIP], unsigned (&e)[STRIP], unsigned& diag_top,
+    unsigned& gm, const uint16_t* __restrict__ codes, int n, int W,
+    const unsigned* __restrict__ prof, const PairRows top,
+    const PairRows bot, unsigned goe2, unsigned ngoe2, unsigned nge2) {
+  unsigned code_q[HG_AHEAD];
+  uint2 top_q[HG_AHEAD];
+#pragma unroll
+  for (int a = 0; a < HG_AHEAD; ++a) {
+    code_q[a] = 0;
+    top_q[a] = make_uint2(0, ngoe2);
+    if (a < n) {
+      code_q[a] = codes[(int64_t)a * W];
+      top_q[a] = make_uint2(top.h[(int64_t)a * W], top.f[(int64_t)a * W]);
+    }
+  }
+#pragma unroll 2
+  for (int j = 0; j < n; ++j) {
+    const unsigned code = code_q[0];
+    unsigned diag = diag_top;
+    diag_top = __vadd2(top_q[0].x, ngoe2);   // H - goe
+    unsigned f = top_q[0].y;
+#pragma unroll
+    for (int a = 0; a + 1 < HG_AHEAD; ++a) {
+      code_q[a] = code_q[a + 1];
+      top_q[a] = top_q[a + 1];
+    }
+    if (j + HG_AHEAD < n) {
+      const int64_t at = (int64_t)(j + HG_AHEAD) * W;
+      code_q[HG_AHEAD - 1] = codes[at];
+      top_q[HG_AHEAD - 1] = make_uint2(top.h[at], top.f[at]);
+    }
+    const unsigned* __restrict__ lo = prof + (code & (TABLE_CODES - 1));
+    const unsigned* __restrict__ hi =
+        prof + ((code >> 8) & (TABLE_CODES - 1));
+    unsigned tprev = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const unsigned en = __viaddmax_s16x2_relu(e[r], nge2, hg[r]);
+      // the pair's entries: lane 2u's code picks lo's row, 2u + 1's hi's
+      const unsigned s2 = (lo[r * TABLE_CODES] & 0x0000FFFFu) |
+                          (hi[r * TABLE_CODES] & 0xFFFF0000u);
+      const unsigned t0g = __vadd2(__viaddmax_s16x2_relu(diag, s2, en),
+                                   ngoe2);
+      diag = hg[r];
+      hg[r] = __viaddmax_s16x2(f, ngoe2, t0g);
+      e[r] = en;
+      f = __viaddmax_s16x2(f, nge2, t0g);
+      if (r & 1) {
+        gm = __vimax3_s16x2(gm, tprev, hg[r]);
+      } else {
+        tprev = hg[r];
+      }
+    }
+    bot.h[(int64_t)j * W] = __vadd2(hg[R - 1], goe2);   // real H
+    bot.f[(int64_t)j * W] = f;
+  }
+}
+
+// hg_walk_block's carry form in lane pairs: blockDim.x / (V / 2) workers of
+// W = V / 2 threads, thread u of a worker on lanes 2u and 2u + 1, on the
+// same schedule (written apart: one schedule for both forms would branch on
+// the form at every step, and the other kernels keep their code). codes
+// points at the DB block's first position (int8, stride V), carry at its
+// first word of the pair carries (stride W). Returns the pair's maximum of
+// hg = H - goe over the tile's rows (each half), in the threads of worker 0.
+__device__ __forceinline__ unsigned hg_walk_block_pairs(
+    const int8_t* __restrict__ codes, int npos, int V,
+    const int* __restrict__ qp, int m, int goe, int ge,
+    const PairRows carry, int* smem) {
+  const int W = V / 2;
+  const int S = blockDim.x / W;
+  const int k = threadIdx.x / W;
+  const int v = threadIdx.x - k * W;
+  const int n_full = m / STRIP;
+  const int n_strips = n_full + (m % STRIP) / STRIP_TAIL;
+  const int D = S == 1 ? npos : HG_STEP;     // positions per step
+  const int nc = S == 1 ? 1 : (npos + D - 1) / D;
+  const int P = nc > S ? nc : S;             // steps per round
+  const int n_rounds = (n_strips + S - 1) / S;
+  const int n_items = n_rounds * P;
+  unsigned* const words = reinterpret_cast<unsigned*>(smem);
+  unsigned* prof = words + k * STRIP * TABLE_CODES;
+  unsigned* ring = words + S * STRIP * TABLE_CODES;
+  const int slot = HG_STEP * W;              // words per ring slot
+  const unsigned goe2 = pair_of(goe), ngoe2 = pair_of(-goe),
+                 nge2 = pair_of(-ge);
+  const uint16_t* __restrict__ cw = reinterpret_cast<const uint16_t*>(codes);
+
+  unsigned hg[STRIP], e[STRIP];
+  unsigned gm = ngoe2;                       // H = 0 in both lanes
+  unsigned diag_top = ngoe2;
+  int s = 0, rows = 0;                       // this worker's current strip
+  for (int t = 0; t < n_items + S - 1; ++t) {
+    const int i = t - k;
+    const int round = i / P;
+    const int c = i - round * P;
+    if (i >= 0 && i < n_items && round * S + k < n_strips && c < nc) {
+      if (c == 0) {                          // a new strip for this worker
+        s = round * S + k;
+        rows = s < n_full ? STRIP : STRIP_TAIL;
+        const int r0 = s < n_full ? s * STRIP
+                                  : n_full * STRIP + (s - n_full) * STRIP_TAIL;
+#pragma unroll
+        for (int r = 0; r < STRIP; ++r) {
+          hg[r] = ngoe2;
+          e[r] = 0;                          // E is kept clamped at 0
+        }
+        diag_top = ngoe2;
+        worker_sync(k, W, S);                // previous strip done with prof
+        for (int idx = v; idx < rows * TABLE_CODES; idx += W) {
+          const int r = idx / TABLE_CODES;
+          const int cc = idx % TABLE_CODES;
+          prof[idx] = pair_of(qp[(int64_t)cc * m + r0 + r] + goe);
+        }
+        worker_sync(k, W, S);
+      }
+      const int p0 = c * D;
+      const int n = npos - p0 < D ? npos - p0 : D;
+      const int64_t off = (int64_t)p0 * W + v;
+      // worker 0 reads the carries, the last worker and the holder of the
+      // last strip write them; the ring holds real H as they do
+      unsigned* const ri = ring + v;
+      PairRows top{carry.h + off, carry.f + off};
+      PairRows bot = top;
+      if (k > 0) {
+        top.h = ri + ((k - 1) * 2 + ((t - 1) & 1)) * 2 * slot;
+        top.f = top.h + slot;
+      }
+      if (k < S - 1 && s < n_strips - 1) {
+        bot.h = ri + (k * 2 + (t & 1)) * 2 * slot;
+        bot.f = bot.h + slot;
+      }
+      if (rows == STRIP) {
+        hg_step_pairs<STRIP>(hg, e, diag_top, gm, cw + off, n, W, prof, top,
+                             bot, goe2, ngoe2, nge2);
+      } else {
+        hg_step_pairs<STRIP_TAIL>(hg, e, diag_top, gm, cw + off, n, W, prof,
+                                  top, bot, goe2, ngoe2, nge2);
+      }
+    }
+    if (S > 1) __syncthreads();
+  }
+  if (S > 1) {                               // fold the workers' maxima
+    unsigned* red = ring;
+    red[k * W + v] = gm;
+    __syncthreads();
+    if (k == 0)
+      for (int w = 1; w < S; ++w) gm = __vmaxs2(gm, red[w * W + v]);
+  }
+  return gm;
 }
 
 }  // namespace sw

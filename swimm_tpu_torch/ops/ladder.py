@@ -77,20 +77,6 @@ def _tile_rows(packed) -> np.ndarray:
         np.bincount(outrow, minlength=n_rows))]).astype(np.int64)
 
 
-def _substream(tiles: torch.Tensor, cum: np.ndarray, rows: np.ndarray):
-    """The blocks `rows` (ascending) of the resident stream as a stream of
-    their own, gathered on the device: (tiles, outrow, row_start)."""
-    counts = cum[rows + 1] - cum[rows]
-    first = np.cumsum(counts) - counts
-    tidx = (np.repeat(cum[rows] - first, counts)
-            + np.arange(int(counts.sum()), dtype=np.int64))
-    dev = tiles.device
-    sub = tiles.index_select(0, torch.from_numpy(tidx).to(dev))
-    outrow = torch.from_numpy(np.repeat(
-        np.arange(len(rows), dtype=np.int32), counts)).to(dev)
-    return sub, outrow, scorer.row_starts(outrow, len(rows))
-
-
 def _resident(packed, dev_db, device):
     return dev_db if dev_db is not None else engine.device_tiles(packed,
                                                                  device)
@@ -194,7 +180,7 @@ def topk_db_adaptive_serving(packed, groups, k: int, gap_open: int,
             parts, sizes = [], []
             for gi, q in entries:
                 pend = pend_all[gi][q]
-                sub, o, rs = _substream(tiles, cum, pend)
+                sub, o, rs = scorer.substream(tiles, cum, pend)
                 kk_t = min(k, len(pend) * V)
                 lane_mask = mask2d[torch.from_numpy(pend).to(dev)].reshape(-1)
                 parts.append(launch(sub, o, len(pend), rs, qps_dev[gi][q],
@@ -296,7 +282,7 @@ def score_db_adaptive_batch(packed, qps, query_lens, gap_open: int,
         stats["tier_blocks"].append(int(len(union)))
         if len(union) == 0:
             break
-        sub, o, rs = _substream(tiles, cum, union)
+        sub, o, rs = scorer.substream(tiles, cum, union)
         wider = torch.stack([scorer.score_tiles(
             sub, o, len(union), qps[q], gap_open, gap_extend, ceiling=tier,
             row_start=rs) for q in range(Q)])          # (Q, U, V)
@@ -340,7 +326,7 @@ def score_db_adaptive(packed, qp, query_len: int, gap_open: int,
         stats["tier_blocks"].append(int(len(pending)))
         if len(pending) == 0:
             break
-        sub, o, rs = _substream(tiles, cum, pending)
+        sub, o, rs = scorer.substream(tiles, cum, pending)
         wider = scorer.score_tiles(sub, o, len(pending), qp, gap_open,
                                    gap_extend, ceiling=tier, row_start=rs)
         scores[torch.from_numpy(pending).to(dev)] = wider

@@ -14,6 +14,18 @@ entering this tile's first row (the JAX kernels carry a global-ramp cummax
 instead; the carries are internal, the contract is the output). The kernels
 update the carries in place, so the streams cost 8 bytes per (db position,
 lane) in all. The result is the max of the per-tile scores.
+
+``score_tiles_long`` runs kernel 2 in its pair form where the input allows
+it (``pair_form_fits``: V a multiple of 64, the gaps and the profile inside
+the 16-bit range): two lanes a thread in 16-bit halves, the carries two
+streams of lane pairs (4 bytes per (db position, lane) in all). A lane
+whose H stays below ``pair_limit`` (32,767 minus the largest profile entry)
+is exact there; one that reaches it may have wrapped, and its maximum says
+so, since the H that first passes the limit is exact and goes into it. So
+after the last tile every DB block with a lane at or above the limit is
+scored again over all query tiles by the int32 form, on a sub-stream of
+those blocks, and its scores replace the pair form's:
+``score_tiles_long.rescored_blocks`` counts them.
 """
 
 from __future__ import annotations
@@ -25,14 +37,17 @@ from swimm_tpu_torch.ops.scorer import (NEG, ChunkTable, check_chunk,
                                         check_gaps, check_precision,
                                         check_stream, chunk_as_stream,
                                         chunk_kernels, kernels, raise_on,
-                                        row_starts, walk_ref)
+                                        row_starts, substream, walk_ref)
 
 LONG_TILE_M = 1024   # query rows per tile (one kernel launch each)
 
 
-def check_carries(codes, hcar, fcar) -> None:
+def check_carries(codes, hcar, fcar, shape=None) -> None:
+    """Both carries int32, contiguous, on the codes' device, shaped like
+    the codes (or `shape`)."""
+    shape = codes.shape if shape is None else shape
     for c in (hcar, fcar):
-        if (c.shape != codes.shape or c.dtype != torch.int32
+        if (c.shape != shape or c.dtype != torch.int32
                 or c.device != codes.device or not c.is_contiguous()):
             raise ValueError("carries must be contiguous int32 tensors "
                              "shaped like the codes, on the same device")
@@ -94,19 +109,109 @@ def score_qtile(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
 score_qtile.launches = 0   # sw_ragged_qtile_kernel launches
 
 
-def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
-                     gap_extend: int, precision: str = "f32",
-                     tile_m: int | None = None,
-                     row_start=None) -> torch.Tensor:
-    """Score a whole-DB ragged tile stream against a query of ANY length
-    (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile.
+PAIR_MAX = 32767   # the largest value of a 16-bit lane
 
-    Returns (n_rows, V) int32 exact scores.
-    """
+
+def pair_form_fits(V: int, gap_open: int, gap_extend: int, lo: int,
+                   hi: int) -> bool:
+    """Whether the pair form of kernel 2 may score V lanes at these gaps
+    with profile entries in lo..hi: workers of V / 2 threads fill whole
+    warps, every staged entry S + goe fits 16 bits, and F - goe >= -2 goe
+    does not wrap (csrc/sw_walk_hg.cuh's note gives the proof)."""
+    goe = gap_open + gap_extend
+    return (V % 64 == 0 and 2 * goe <= PAIR_MAX + 1 and lo >= -PAIR_MAX - 1
+            and hi + goe <= PAIR_MAX)
+
+
+def pair_limit(hi: int) -> int:
+    """T: below it a lane of the pair form is exact for a profile whose
+    largest entry is hi (no H + S can pass 32,767 while H < T)."""
+    return PAIR_MAX - hi
+
+
+def pair_word(x: int) -> int:
+    """The int32 lane pair that holds the 16-bit value x in both lanes."""
+    w = (x & 0xFFFF) * 0x10001
+    return w - (1 << 32) if w >= 1 << 31 else w
+
+
+def to_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(..., V) int32 values in the int16 range (any others keep their low 16
+    bits) -> (..., V / 2) int32 lane pairs: lane 2u in the low half, 2u + 1
+    in the high half."""
+    w = (x[..., 0::2].long() & 0xFFFF) | ((x[..., 1::2].long() & 0xFFFF)
+                                          << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).int()
+
+
+def from_pairs(p: torch.Tensor) -> torch.Tensor:
+    """(..., V / 2) int32 lane pairs -> (..., V) int32, each half
+    sign-extended."""
+    w = p.long()
+    lo = ((w & 0xFFFF) ^ 0x8000) - 0x8000
+    hi = (((w >> 16) & 0xFFFF) ^ 0x8000) - 0x8000
+    return torch.stack([lo, hi], dim=-1).flatten(-2).int()
+
+
+def score_qtile_pairs_ref(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
+                          gap_extend: int, hcar2, fcar2, row_start=None):
+    """Plain PyTorch version of one pair-form launch, to the kernel's
+    contract: hcar2/fcar2 (T, jt, V / 2) int32 lane pairs in and out (new
+    tensors). A lane whose H stays below T = pair_limit(max(qp_tile)) over
+    the tile's rows scores exactly and carries its exact H and F; any other
+    lane scores T (the kernel: T or more) and carries what 16 bits keep of
+    its values, which the caller must not read."""
+    limit = pair_limit(int(qp_tile.max()))
+    out, hc, fc = score_qtile_ref(tiles, outrow, n_rows, qp_tile, gap_open,
+                                  gap_extend, from_pairs(hcar2),
+                                  from_pairs(fcar2), row_start)
+    return out.clamp_max(limit), to_pairs(hc), to_pairs(fc)
+
+
+def score_qtile_pairs(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
+                      gap_extend: int, hcar2, fcar2, row_start=None):
+    """One query tile over the whole stream in the pair form (inputs that
+    pair_form_fits accepts). On a CUDA tensor: one launch of
+    sw_ragged_qtile_kernel<true>, which updates hcar2/fcar2 IN PLACE and
+    returns them; on a CPU tensor: score_qtile_pairs_ref."""
+    check_stream(tiles, outrow, qp_tile, row_start)
+    T, jt, V = tiles.shape
+    check_carries(tiles, hcar2, fcar2, (T, jt, V // 2))
+    if V % 64:
+        raise ValueError(f"the pair form needs V % 64 == 0 (got V={V})")
+    if tiles.device.type == "cpu":
+        return score_qtile_pairs_ref(tiles, outrow, n_rows, qp_tile,
+                                     gap_open, gap_extend, hcar2, fcar2,
+                                     row_start)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"unsupported device {tiles.device}")
     check_gaps(gap_open, gap_extend)
-    check_precision(precision)
-    tile_m = tile_m or LONG_TILE_M
-    qp, n_qt = pad_to_tiles(qp, tile_m)
+    if row_start is None:
+        row_start = row_starts(outrow, n_rows)
+    with torch.cuda.device(tiles.device):
+        out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
+        err = kernels().sw_ragged_qtile_pairs_launch(
+            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+            qp_tile.data_ptr(), qp_tile.shape[1], gap_open + gap_extend,
+            gap_extend, hcar2.data_ptr(), fcar2.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(tiles.device).cuda_stream)
+    raise_on(err, "sw_ragged_qtile_kernel")
+    score_qtile_pairs.launches += 1
+    return out, hcar2, fcar2
+
+
+score_qtile_pairs.launches = 0   # sw_ragged_qtile_kernel<true> launches
+
+
+def score_tiles_long_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
+                           gap_extend: int, tile_m: int | None = None,
+                           row_start=None) -> torch.Tensor:
+    """score_tiles_long in the int32 form whatever the input: every query
+    tile of qp through score_qtile. The fallback and the second pass of
+    score_tiles_long; (n_rows, V) int32 exact scores."""
+    check_gaps(gap_open, gap_extend)
+    qp, n_qt = pad_to_tiles(qp, tile_m or LONG_TILE_M)
+    tile_m = qp.shape[1] // n_qt
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
     hcar = torch.zeros(tiles.shape, dtype=torch.int32, device=tiles.device)
@@ -122,8 +227,63 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
     return best
 
 
-# the CUDA kernel it launches, through score_qtile
+def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
+                     gap_extend: int, precision: str = "f32",
+                     tile_m: int | None = None,
+                     row_start=None) -> torch.Tensor:
+    """Score a whole-DB ragged tile stream against a query of ANY length
+    (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile: in the
+    pair form where pair_form_fits allows it (three scalars of the profile
+    come back from its device), then, unless the sum of the profile's row
+    maxima stays below pair_limit, the int32 form over the blocks that have
+    a lane at or above it (their rows come back too); else in the int32
+    form.
+
+    Returns (n_rows, V) int32 exact scores.
+    """
+    check_gaps(gap_open, gap_extend)
+    check_precision(precision)
+    tile_m = tile_m or LONG_TILE_M
+    qp, n_qt = pad_to_tiles(qp, tile_m)
+    if row_start is None:
+        row_start = row_starts(outrow, n_rows)
+    # the profile's least and largest entries, and the sum of its rows'
+    # largest entries (at least 0 each): no H can pass that sum
+    lo, hi, top = torch.stack([qp.min(), qp.max(),
+                               qp.amax(dim=0).clamp_min(0).sum()]).tolist()
+    T, jt, V = tiles.shape
+    if not pair_form_fits(V, gap_open, gap_extend, lo, hi):
+        return score_tiles_long_int32(tiles, outrow, n_rows, qp, gap_open,
+                                      gap_extend, tile_m, row_start)
+    half = (T, jt, V // 2)
+    hcar = torch.zeros(half, dtype=torch.int32, device=tiles.device)
+    # F = -goe above the first row acts as no F at all (H >= 0 there)
+    fcar = torch.full(half, pair_word(-(gap_open + gap_extend)),
+                      dtype=torch.int32, device=tiles.device)
+    best = None
+    for qt in range(n_qt):
+        qp_tile = qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous()
+        out, hcar, fcar = score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
+                                            gap_open, gap_extend, hcar, fcar,
+                                            row_start)
+        best = out if best is None else torch.maximum(best, out)
+    del hcar, fcar
+    if top < pair_limit(hi):   # no lane can reach the limit
+        return best
+    rows = torch.nonzero((best >= pair_limit(hi)).any(dim=1)).flatten()
+    rows = rows.cpu().numpy()
+    if len(rows):
+        sub, o, rs = substream(tiles, row_start.cpu().numpy(), rows)
+        best[torch.from_numpy(rows).to(best.device)] = \
+            score_tiles_long_int32(sub, o, len(rows), qp, gap_open,
+                                   gap_extend, tile_m, rs)
+        score_tiles_long.rescored_blocks += len(rows)
+    return best
+
+
+# the CUDA kernel it launches, through score_qtile_pairs and score_qtile
 score_tiles_long.kernel = "sw_ragged_qtile_kernel"
+score_tiles_long.rescored_blocks = 0   # DB blocks scored again in int32
 
 
 def score_chunk_qtile_ref(codes, qp_tile, gap_open: int, gap_extend: int,

@@ -91,6 +91,21 @@ def row_starts(outrow: torch.Tensor, n_rows: int) -> torch.Tensor:
     return out
 
 
+def substream(tiles: torch.Tensor, cum: np.ndarray, rows: np.ndarray):
+    """The blocks `rows` (ascending) of a tile stream as a stream of their
+    own, gathered on the device; cum is the stream's row_starts on the
+    host. Returns (tiles, outrow, row_start)."""
+    counts = cum[rows + 1] - cum[rows]
+    first = np.cumsum(counts) - counts
+    tidx = (np.repeat(cum[rows] - first, counts)
+            + np.arange(int(counts.sum()), dtype=np.int64))
+    dev = tiles.device
+    sub = tiles.index_select(0, torch.from_numpy(tidx).to(dev))
+    outrow = torch.from_numpy(np.repeat(
+        np.arange(len(rows), dtype=np.int32), counts)).to(dev)
+    return sub, outrow, row_starts(outrow, len(rows))
+
+
 def check_precision(precision: str) -> None:
     """'f32' | 'int32' are the JAX package's kernel dtypes, accepted for
     its contract; every scorer here computes exact int32."""
@@ -238,6 +253,9 @@ RAGGED_SIGNATURES = {
                          _INT, _INT, _INT, _PTR, _PTR, _PTR],
     "sw_ragged_qtile_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR, _PTR],
+    "sw_ragged_qtile_pairs_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR,
+                                     _INT, _INT, _INT, _PTR, _PTR, _PTR,
+                                     _PTR],
     "sw_ragged_packed_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                 _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR],
 }

@@ -159,8 +159,8 @@ def test_run_round_routes_equal_jax(case):
     res = fuzz.run_round(d, "cpu", np.random.default_rng([0, 1]))
     assert res["mismatch"] is None
     routes = res["routes"]
-    assert list(routes) == (["k5", "k2", "k3"] if d.long
-                            else ["k4", "k1", "k3", "ladder"])
+    assert list(routes) == (["k5", "k2", "k2_planted", "k2_int32", "k3"]
+                            if d.long else ["k4", "k1", "k3", "ladder"])
     mat = j_get_matrix(d.matrix)
     B = d.codes.shape[0]
     exact = jcref.sw_score_many(d.query, d.seqs, mat, d.gap_open,
@@ -239,3 +239,19 @@ def test_fuzz_packed_small_equals_jax_search(tmp_path, capsys):
         for got in (r["per_query"], r["packed"]):
             assert [[(h.score, h.sorted_idx, h.title) for h in x.hits]
                     for x in got] == want
+
+
+@pytest.mark.parametrize("matrix", fuzz.MATRICES)
+def test_planted_lanes_cross_the_pair_limit(matrix):
+    # every matrix's planted stream holds a lane past 32,767, one at the
+    # pair form's limit and one just below it (C oracle)
+    d = fuzz.Draw(matrix, 10, 2, random_codes(np.random.default_rng(7), 9),
+                  [], np.zeros((1, 32, fuzz.V), np.int8), None)
+    query, seqs, (tiles, outrow, n_rows) = fuzz.planted(d)
+    mat = j_get_matrix(matrix)
+    limit = fuzz.PAIR_MAX - int(np.max(mat))
+    assert tiles.shape == (-(-len(query) // 32), 32, 64) and n_rows == 1
+    assert outrow.tolist() == [0] * tiles.shape[0]
+    exp = jcref.sw_score_many(query, seqs, mat, 10, 2)
+    assert exp[0] > fuzz.PAIR_MAX and limit <= exp[1] <= fuzz.PAIR_MAX
+    assert exp[2] < limit and not exp[3:].any()

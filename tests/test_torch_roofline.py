@@ -321,3 +321,23 @@ def test_walk_sass_per_cell_reads_the_innermost_strip_loop(monkeypatch):
         rl.walk_sass_per_cell(function="sw_ragged_kernelILb1E")
     with pytest.raises(RuntimeError, match="no kernel"):
         rl.walk_sass_per_cell(function="sw_chunk_kernel")
+
+
+def test_walk_sass_per_cell_reads_the_pair_form_two_cells_a_row(monkeypatch):
+    # the pair form's loop: two db positions of a 32-row strip, 4
+    # VIADDMNMX a row, each row two lanes (cells); a loop whose VIADDMNMX
+    # count is no multiple of 4 x 32 is not a strip loop
+    text = "\n".join([
+        _strip_sass("_Z22sw_ragged_qtile_kernelILb1EEvPKa", 64,
+                    ["LOP3.LUT R3, R3, 0xffff0000, R4, 0xf8, !PT",
+                     "VIADD R8, R8, R9"]),
+        _strip_sass("_Z22sw_ragged_qtile_kernelILb0EEvPKa", 31, [])])
+    monkeypatch.setattr(rl, "_library_sass", lambda lib: parse_sass(text))
+    got = rl.walk_sass_per_cell(function="sw_ragged_qtile_kernelILb1E",
+                                lanes=2)
+    assert got["VIADDMNMX"] == 2.0 and got["LDS"] == 0.5
+    assert got["LOP3"] == 1 / 128 and got["BRA"] == 1 / 128
+    assert rl.walk_load(got)["pipe"] == 2 + 1 / 128
+    with pytest.raises(RuntimeError, match="no 32-row strip loop"):
+        rl.walk_sass_per_cell(function="sw_ragged_qtile_kernelILb0E",
+                              lanes=2)

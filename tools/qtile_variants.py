@@ -3,8 +3,9 @@ swimm_tpu_torch/csrc against each other on one NVIDIA GPU, in turns, at
 chip_smoke.py's workload (570,000 synthetic sequences in 55 chunks; the
 5,000-aa query's third 1024-row tile over every chunk in one launch, with
 the second tile's carries in) and sw_ragged_qtile_kernel (kernel 2, which
-shares its worker count: the long query's second tile over the stream),
-and kernels 1, 3 and 4 of the variants in WHOLE beside them (query 0 for
+shares its worker count: the long query's second tile over the stream, in
+its int32 form and, where the variant has it, its pair form), and kernels
+1, 3 and 4 of the variants in WHOLE beside them (query 0 for
 sw_ragged_kernel and sw_chunk_kernel, the widest pack of the 20 queries for
 sw_ragged_packed_kernel).
 
@@ -13,21 +14,26 @@ sw_ragged_packed_kernel).
 Each variant is a copy of swimm_tpu_torch/csrc with text substitutions
 (VARIANTS below; the script stops if a substitution no longer applies):
 
-  shipped   the sources as they are (four workers in the carry form)
-  S2        the carry form with two workers (QTILE_WORKERS = 2: kernels 2
-            and 5)
+  shipped   the sources as they are (four workers in the carry form and
+            in the pair form, the pair form's position loop unrolled by 2)
+  pair_S2   the pair form with two workers (QTILE_PAIR_WORKERS = 2)
+  pair_u1   the pair form's position loop not unrolled
 
 --parent DIR adds the csrc directory of another commit as variant "parent",
 e.g. from `git archive <commit> swimm_tpu_torch/csrc | tar -x -C
-build/parent` (then DIR is build/parent/swimm_tpu_torch/csrc). Every
+build/parent` (then DIR is build/parent/swimm_tpu_torch/csrc); a library
+that lacks a newer launcher (the pair form's) is timed without it. Every
 variant's libraries are built side by side with the package's nvcc flags.
 Every variant's kernel 5 is checked against its plain version on small
 cases (chunks of 32 positions beside long ones, random carries in with
 planted F), and at full size against the first variant (kernels 5 and 2,
-scores and both carries; kernels 1, 3 and 4 too for the variants in
+scores and both carries; the pair form against the first variant's int32
+form, carries unpacked; kernels 1, 3 and 4 too for the variants in
 WHOLE). Prints the card's
 name and power limit, each kernel's registers and spills, the 8-bit loads
-and PRMTs of kernel 5's SASS, each timing, and the 5,000-aa query's five
+and PRMTs of kernel 5's SASS, the pair loop's SASS a cell in every variant
+and whether every kernel but the pair form compiles to the parent's SASS,
+each timing, and the 5,000-aa query's five
 tiles of kernel 5 end to end; writes the timings as JSON and the SASS of
 each library to --out (default build/qtile_variants). Exits 1 without a
 CUDA device.
@@ -54,12 +60,16 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = ROOT / "swimm_tpu_torch" / "csrc"
 SOURCES = ("sw_ragged.cu", "sw_chunk.cu", "sw_walk.cuh", "sw_walk_hg.cuh")
+_HG = "sw_walk_hg.cuh"
 VARIANTS = {  # name -> [(file, old, new)]
     "shipped": [],
-    "S2": [("sw_walk_hg.cuh", "constexpr int QTILE_WORKERS = 4;",
-            "constexpr int QTILE_WORKERS = 2;")],
+    "pair_S2": [(_HG, "constexpr int QTILE_PAIR_WORKERS = 4;",
+                 "constexpr int QTILE_PAIR_WORKERS = 2;")],
+    "pair_u1": [(_HG, "#pragma unroll 2\n  for (int j = 0; j < n; ++j) {",
+                 "#pragma unroll 1\n  for (int j = 0; j < n; ++j) {")],
 }
-WHOLE = ("parent", "shipped")   # kernels 1, 3 and 4 timed too
+WHOLE = ("parent", "shipped")   # kernels 1, 3, 4, 5 and 2 (int32) timed
+# too; every variant with the pair form times kernel 2's pair form
 
 
 def note(msg: str) -> None:
@@ -165,11 +175,29 @@ def build(dirs: dict, out: Path) -> dict:
 
 
 def bind(path: Path, signatures: dict):
+    """The library with every function of `signatures` it has bound (a
+    parent's library may lack the newer ones)."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def kernel_key(fn: str):
+    """(kernel, template bool) of a mangled kernel name; a kernel without a
+    template counts as <0> (kernel 2's int32 form was not a template)."""
+    m = re.search(r"(sw_[a-z_]+?kernel)(ILb([01])E)?", fn)
+    return None if m is None else (m.group(1), m.group(3) or "0")
+
+
+def sass_bodies(path: Path) -> dict:
+    """{function name: its instructions (opcode and operands)} of a saved
+    SASS listing."""
+    from swimm_tpu_torch.benchmarks import parse_sass
+    return {name: [(op, args) for _, op, args in insns]
+            for name, (insns, _) in parse_sass(path.read_text()).items()}
 
 
 def main() -> int:
@@ -296,6 +324,15 @@ def main() -> int:
             raise RuntimeError("sw_ragged_qtile_kernel launch failed")
         return out
 
+    def k2p(lib, h, f):
+        out = torch.empty((n_rows, V), dtype=torch.int32, device="cuda")
+        if lib.sw_ragged_qtile_pairs_launch(
+                tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+                qts[1].data_ptr(), 1024, 12, 2, h.data_ptr(), f.data_ptr(),
+                out.data_ptr(), st()):
+            raise RuntimeError("sw_ragged_qtile_kernel<true> launch failed")
+        return out
+
     def k3(lib):
         out = torch.zeros((n_rows, 24, V), dtype=torch.int32, device="cuda")
         if lib.sw_ragged_packed_launch(
@@ -336,6 +373,10 @@ def main() -> int:
     h, f = h1.clone(), f1.clone()
     ref2 = (k2(rag[first], h, f), h, f)
     ref = (k1(rag[first]), k3(rag[first]), k4(chk[first]))
+    # the pair form's carries after the first tile (int32 carries packed)
+    pairs = [n for n in dirs
+             if hasattr(rag[n], "sw_ragged_qtile_pairs_launch")]
+    h1p, f1p = longquery.to_pairs(h1), longquery.to_pairs(f1)
     for name in dirs:
         hs, fs = clone(h2), clone(f2)
         got5 = k5(chk[name], table, qts[2], 10, 2, hs, fs)
@@ -349,22 +390,60 @@ def main() -> int:
             e += [cs.max_err(k1(rag[name]), ref[0]),
                   cs.max_err(k3(rag[name]), ref[1]),
                   cs.max_err(k4(chk[name]), ref[2])]
+        if name in pairs:
+            hp, fp = h1p.clone(), f1p.clone()
+            e.append(max(cs.max_err(k2p(rag[name], hp, fp), ref2[0]),
+                          cs.max_err(longquery.from_pairs(hp), ref2[1]),
+                          cs.max_err(longquery.from_pairs(fp), ref2[2])))
+            del hp, fp
         errs[name] = max(errs[name], *e)
-        note(f"{name} vs {first}, full size: kernels 5, 2 (1, 3, 4) "
-             f"max_abs_err {e}")
+        note(f"{name} vs {first}, full size: kernels 5, 2 (1, 3, 4) (2 "
+             f"in pairs) max_abs_err {e}")
         del hs, fs, got5, h, f, got2
     if any(errs.values()):
         raise SystemExit(f"a variant disagrees: {errs}")
 
+    # the pair loop's SASS a cell in every variant; kernels 1, 3, 4 and 5
+    # and kernel 2's int32 form the same SASS in parent and shipped
+    sass = {(n, src): sass_bodies(args.out / f"sass_{n}_{src}.txt")
+            for n in dirs for src in ("sw_ragged", "sw_chunk")}
+    from swimm_tpu_torch.benchmarks import parse_sass
+    from swimm_tpu_torch.benchmarks import roofline as rl
+    for name in pairs:
+        per_cell = rl.walk_sass_per_cell(
+            function="sw_ragged_qtile_kernelILb1E", lanes=2,
+            sass=parse_sass((args.out / f"sass_{name}_sw_ragged.txt")
+                            .read_text()))
+        resources[name]["k2p_sass_per_cell"] = per_cell
+        resources[name]["k2p_load"] = rl.walk_load(per_cell)
+        note(f"{name}: kernel 2 pair loop, SASS a cell "
+             f"{rl.walk_load(per_cell)} {per_cell}")
+    if "parent" in dirs:
+        for src in ("sw_ragged", "sw_chunk"):
+            a = {kernel_key(fn): body
+                 for fn, body in sass[("parent", src)].items()}
+            b = {kernel_key(fn): body
+                 for fn, body in sass[("shipped", src)].items()}
+            for key in sorted(k for k in a if k is not None):
+                same = key in b and a[key] == b[key]
+                resources["shipped"][f"same_sass_{key[0]}<{key[1]}>"] = same
+                note(f"SASS {src} {key[0]}<{key[1]}>: parent and shipped "
+                     f"{'the same' if same else 'DIFFER'} ({len(a[key])} / "
+                     f"{len(b.get(key, ()))} instructions)")
     h5, f5 = clone(h2), clone(f2)
     hk, fk = h1.clone(), f1.clone()
+    hkp, fkp = h1p.clone(), f1p.clone()
     times = {n: {} for n in dirs}
     order = list(dirs)
     for rnd in range(6):
         for name in (order if rnd % 2 == 0 else order[::-1]):
-            row = {"k5": cs.cuda_ms(lambda: k5(chk[name], table, qts[2], 10,
-                                               2, h5, f5), 3),
-                   "k2": cs.cuda_ms(lambda: k2(rag[name], hk, fk), 3)}
+            row = {}
+            if name in WHOLE or not name.startswith("pair_"):
+                row["k5"] = cs.cuda_ms(lambda: k5(chk[name], table, qts[2],
+                                                  10, 2, h5, f5), 3)
+                row["k2"] = cs.cuda_ms(lambda: k2(rag[name], hk, fk), 3)
+            if name in pairs:
+                row["k2p"] = cs.cuda_ms(lambda: k2p(rag[name], hkp, fkp), 3)
             if name in WHOLE:
                 for key, fn, lib in (("k1", k1, rag[name]),
                                      ("k3", k3, rag[name]),
