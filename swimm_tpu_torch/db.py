@@ -158,6 +158,23 @@ class PackedDb:
         self._block_maxlen_cache = np.asarray(out, dtype=np.int64)
         return self._block_maxlen_cache
 
+    def block_residues(self) -> np.ndarray:
+        """Per global block row, the real residues of its sequences (pad
+        lanes hold none): the differences of the sorted lengths' running
+        sum at the blocks' bounds. int64, cached on the instance."""
+        cached = getattr(self, "_block_residues_cache", None)
+        if cached is not None:
+            return cached
+        cum = np.concatenate([[0], np.cumsum(self.lengths, dtype=np.int64)])
+        out = []
+        for ch in self.chunks:
+            lo = ch.base + np.arange(ch.n_blocks, dtype=np.int64) * ch.V
+            hi = np.minimum(lo + ch.V, ch.base + ch.n_seqs)
+            out.append(cum[hi] - cum[np.minimum(lo, hi)])
+        self._block_residues_cache = (np.concatenate(out) if out
+                                      else np.zeros(0, np.int64))
+        return self._block_residues_cache
+
     def seq_codes(self, sorted_idx: int) -> np.ndarray:
         """Recover one sequence's residue codes from the packed chunks."""
         if not 0 <= sorted_idx < self.n_seqs:

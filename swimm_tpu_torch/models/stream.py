@@ -32,6 +32,19 @@ For a database larger than device memory (SearchConfig(db_stream=True)):
   histograms on the device), and the host merges the candidates in (score
   desc, sorted index asc) order. Every global top-k hit is in its own
   window's top-k, so both give the resident hit lists exactly.
+
+While a profiler is open (utils/metrics.span) the path records its spans:
+``stream.read`` (reader thread: one window's chunk files into its host
+slot; ``bytes``), ``stream.wait`` (consumer: blocked on the prefetch queue
+for the next window), ``stream.window`` (consumer: a window handed over →
+its last launch queued; ``tiles``, ``rows``), ``engine.launch`` per (window,
+query) with the resident path's attrs (``kernel``; ``cells``, the query's
+length × the window's real residues, so a batch's launches sum to its
+SearchMetrics.cells) and ``stream.merge`` (the finalize, or the candidates'
+copies and host merge). Counters, always on: ``stream_windows.windows``
+(windows streamed) and ``stream_windows.h2d_bytes`` (the bytes of each
+window's three host → device copies: tiles, local rows, row starts; none
+on the CPU, where the windows are scored in place).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch
 
 from swimm_tpu_torch.ops.longquery import LONG_TILE_M
 from swimm_tpu_torch.ops.scorer import max_query_pad
+from swimm_tpu_torch.utils.metrics import span
 
 
 def select_mode(m_pad: int) -> str:
@@ -277,7 +291,8 @@ def iter_windows(packed, window_tiles: int, slots, jt: int = 32,
         win = slots.tiles[s].numpy()[:n_t]
         orow = slots.orow[s].numpy()[:n_t]
         rs = slots.row_start[s].numpy()[:n_w + 1]
-        filled = _fill_window(packed, layout, t0, t1, win)
+        with span("stream.read", bytes=win.nbytes):
+            filled = _fill_window(packed, layout, t0, t1, win)
         if filled != n_t:
             raise IOError(f"window [{t0}, {t1}) filled {filled} tiles")
         rs[:] = cum[g0:g1 + 1] - t0
@@ -320,7 +335,8 @@ def _prefetch_iter(it, depth: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("stream.wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
@@ -358,6 +374,7 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
     try:
         if dev.type != "cuda":
             for s, win, orow, rs, g0, n_w in feed:
+                _count_window()
                 yield (torch.from_numpy(win), torch.from_numpy(orow),
                        torch.from_numpy(rs), g0, n_w)
                 slots.release(s)
@@ -389,6 +406,7 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
                 copied.record(copier)
             slots.release(s, copied)
             compute.wait_event(copied)
+            _count_window(*src)
             yield (*dst, g0, n_w)
             # under the guard, but not across the yield: the consumer's
             # current device stays its own
@@ -398,6 +416,15 @@ def stream_windows(packed, window_tiles: int, max_in_flight: int, dev,
     finally:
         slots.close()
         feed.close()
+
+
+stream_windows.windows = 0     # windows streamed
+stream_windows.h2d_bytes = 0   # bytes of their host -> device copies
+
+
+def _count_window(*copied) -> None:
+    stream_windows.windows += 1
+    stream_windows.h2d_bytes += sum(a.nbytes for a in copied)
 
 
 def check_streamable(config) -> None:
@@ -441,15 +468,19 @@ def search_streaming_batch(packed, queries, config, device=None):
             queries, config.m_multiple).items()):
         mode = select_mode(m_pad)
         padded_rows += dispatched_rows(mode, m_pad) * len(positions)
+        kernel = engine.lane_scorer(mode).kernel
         for p in positions:
             order.append(p)
-            launches.append((mode, torch.from_numpy(build_query_profile(
-                queries[p].codes, config.matrix, config.m_multiple)).to(dev)))
+            launches.append((mode, kernel, queries[p].length,
+                             torch.from_numpy(build_query_profile(
+                                 queries[p].codes, config.matrix,
+                                 config.m_multiple)).to(dev)))
     if not spans or not queries:
         return [[] for _ in queries], padded_rows, lane_positions
     merge = resolve_stream_scores(config, len(queries), n_rows, r_cap, V)
     mask, lane2sorted = engine.device_lane_maps(packed, dev)
     bins = engine.device_lane_bins(packed, dev) if config.evalue else None
+    residues = packed.block_residues()
     k = config.top_k
     if merge == "buffer":            # one buffer per query: rows of a group
         buf = torch.zeros((len(order), n_rows, V), dtype=torch.int32,
@@ -462,44 +493,53 @@ def search_streaming_batch(packed, queries, config, device=None):
     for tiles, outrow, row_start, g0, n_w in stream_windows(
             packed, config.window_tiles, config.max_in_flight, dev):
         lanes = slice(g0 * V, (g0 + n_w) * V)
+        real = int(residues[g0:g0 + n_w].sum())
         vs, sis = [], []
-        for row, (mode, qp) in enumerate(launches):
-            scores = engine.score_lanes((tiles, outrow, n_w, row_start), qp,
-                                        mode, config)
-            if merge == "buffer":
-                buf[row, g0:g0 + n_w] = scores.view(n_w, V)
-                continue
-            v, si = engine.device_top_k(scores, mask[lanes],
-                                        lane2sorted[lanes], min(k, n_w * V))
-            vs.append(v)
-            sis.append(si)
-            if tables is not None:
-                tables[row] += engine.score_hist(scores, mask[lanes],
-                                                 bins[lanes])
-        if merge == "candidates":
-            cands.append((torch.stack(vs), torch.stack(sis)))
+        with span("stream.window", tiles=int(tiles.shape[0]), rows=n_w):
+            for row, (mode, kernel, length, qp) in enumerate(launches):
+                with span("engine.launch", kernel=kernel,
+                          cells=length * real):
+                    scores = engine.score_lanes(
+                        (tiles, outrow, n_w, row_start), qp, mode, config)
+                if merge == "buffer":
+                    buf[row, g0:g0 + n_w] = scores.view(n_w, V)
+                    continue
+                v, si = engine.device_top_k(scores, mask[lanes],
+                                            lane2sorted[lanes],
+                                            min(k, n_w * V))
+                vs.append(v)
+                sis.append(si)
+                if tables is not None:
+                    tables[row] += engine.score_hist(scores, mask[lanes],
+                                                     bins[lanes])
+            if merge == "candidates":
+                cands.append((torch.stack(vs), torch.stack(sis)))
     out = [None] * len(queries)
-    if merge == "buffer":            # the resident path's finalize
-        kk = min(k, mask.numel())
-        finals = [engine.device_top_k(buf[row].view(-1), mask, lane2sorted,
-                                      kk) for row in range(len(order))]
-        hists = ([engine.score_hist(buf[row].view(-1), mask, bins)
-                  for row in range(len(order))] if config.evalue else None)
-        engine._collect_hits(packed, config, order, [f[0] for f in finals],
-                             [f[1] for f in finals], hists, out)
-        return out, padded_rows, lane_positions
-    # host merge: global (score desc, sorted index asc) over the union of
-    # per-window candidates, which holds the global top-k
-    v_all = torch.cat([c[0] for c in cands], dim=1).cpu().numpy()
-    i_all = torch.cat([c[1] for c in cands], dim=1).cpu().numpy()
-    if config.evalue:
-        tabs = tables.cpu().numpy()
-        _, bin_logl = stats.length_bins(packed.lengths)
-    for row, p in enumerate(order):
-        v, i = v_all[row], i_all[row]
-        by = np.lexsort((i, -v))
-        out[p] = engine._hits_from(packed, v[by], i[by], k)
+    with span("stream.merge", merge=merge):
+        if merge == "buffer":        # the resident path's finalize
+            kk = min(k, mask.numel())
+            finals = [engine.device_top_k(buf[row].view(-1), mask,
+                                          lane2sorted, kk)
+                      for row in range(len(order))]
+            hists = ([engine.score_hist(buf[row].view(-1), mask, bins)
+                      for row in range(len(order))] if config.evalue
+                     else None)
+            engine._collect_hits(packed, config, order,
+                                 [f[0] for f in finals],
+                                 [f[1] for f in finals], hists, out)
+            return out, padded_rows, lane_positions
+        # host merge: global (score desc, sorted index asc) over the union
+        # of per-window candidates, which holds the global top-k
+        v_all = torch.cat([c[0] for c in cands], dim=1).cpu().numpy()
+        i_all = torch.cat([c[1] for c in cands], dim=1).cpu().numpy()
         if config.evalue:
-            stats.attach_evalues(out[p], stats.fit_evalue_model_hist(
-                tabs[row], bin_logl), packed.lengths)
+            tabs = tables.cpu().numpy()
+            _, bin_logl = stats.length_bins(packed.lengths)
+        for row, p in enumerate(order):
+            v, i = v_all[row], i_all[row]
+            by = np.lexsort((i, -v))
+            out[p] = engine._hits_from(packed, v[by], i[by], k)
+            if config.evalue:
+                stats.attach_evalues(out[p], stats.fit_evalue_model_hist(
+                    tabs[row], bin_logl), packed.lengths)
     return out, padded_rows, lane_positions
