@@ -12,10 +12,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      and the DB's longest block, and for sw_ragged_kernel the shapes that
      strain its cooperating workers, each with and without a ceiling:
      one-tile blocks, m = 8, 32, 40, 72, 120, 136, 448, 2048, 64, 256 and
-     512 lanes, flat and free gaps; more than 512 lanes are refused before
-     any launch; for sw_ragged_qtile_kernel, on the carry form of its walk,
-     tile_m = 8 to 1024 (1 to 32 strips, tail strips, three and four
-     workers), one-tile blocks, 64 to 512 lanes, gaps 10/2, 5/0, 0/3, 0/0,
+     512 lanes, flat and free gaps, every case without a ceiling in both
+     lane forms (the int32 form and the pair form, 16-bit lane pairs, whose
+     plain version is the int32 walk clamped at its limit); then kernel 1's
+     16-bit guard through score_tiles: lanes past 32,767 (a matrix with A/A
+     1,000; a 1,928-aa W run under PAM250), at or just below T, equal to
+     the C oracle with the flagged blocks re-scored in int32 and counted
+     exactly, a wrong score from the pair form alone, and the int32 form
+     for gaps past the 16-bit bound and for V = 96; more than 512 lanes
+     are refused before any launch; for sw_ragged_qtile_kernel, on the
+     carry form of its walk, tile_m = 8 to 1024 (1 to 32 strips, tail
+     strips, three and four workers), one-tile blocks, 64 to 512 lanes, gaps 10/2, 5/0, 0/3, 0/0,
      random carries in with lanes whose score is their incoming F alone,
      scores and both carries out, and three chained tiles against one pass;
      the same cases in its pair form (16-bit lane pairs, carries packed)
@@ -54,7 +61,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
      uploaded once, searched once as warm-up, then timed with the kernels'
-     launch counters set to 0 just before and read just after;
+     launch counters set to 0 just before and read just after, all 20
+     launches of kernel 1 in its pair form and none re-scored;
   4. one 5,000-aa query (a query-0 segment inside random sequence) through
      the query-tiled path (5 tiles of 1024 rows), counted the same way, all
      5 in kernel 2's pair form, and none re-scored;
@@ -78,7 +86,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the long query's third tile over every chunk with the second tile's
      carries in), their times beside their bounds (bound_ms: the nominal
      instruction rate, roofline.peak_instruction_rate, from the card's SM
-     count and max clock; pipe_bound_ms: the rates phase 19 measures),
+     count and max clock, at half the instructions a cell for a pair form;
+     pipe_bound_ms: the rates phase 19 measures),
      kernel 1's time without
      the 100 longest blocks and on those alone, GCUPS, latencies, profiled
      20-query searches (kernel device time and the device's idle share);
@@ -170,15 +179,17 @@ phase 8, its launches counted apart from the kernels line:
      with adversarial lanes, a ceiling of 127 or 32,767), every route a
      round can take (kernels 4 and 1 with its ceiling, or 5 and 2, on the
      blocks as chunks and as a ragged stream, and kernel 2 on a planted
-     stream with lanes past 32,767 in both lane forms; kernel 3 on a pack
+     stream with lanes past 32,767 in both lane forms, and kernel 1 on
+     that stream with the query cut to 2,048 residues; kernel 3 on a pack
      of 2-6 new
      queries; the ladder) equal to the C oracle, until all 8 matrices and
      the routes of kernels 1-5 have run (at most 64 rounds); (b)
      acceptance config 1: every lane of score_db over 10,000 sequences
      equal to the C oracle; (c) one fuzz_packed round (3,000 sequences,
      per query against packed, the oracle on a top hit); kernels 1-5 must
-     each have launched in the phase, kernel 2's launches by lane form and
-     its re-scored blocks printed (one planted block a long round).
+     each have launched in the phase, kernels 1 and 2's launches by lane
+     form and their re-scored blocks printed (kernel 2: one planted block
+     a long round; kernel 1: one a long PAM250 round).
 Then the measurement entry points (swimm_tpu_torch.bench and
 benchmarks/bench_*.py), before phase 8, on the phase-3 DB and queries,
 their launches counted apart from the kernels line:
@@ -267,6 +278,38 @@ def profile(rng, m, matrix="BLOSUM62"):
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def kernel1_launches() -> int:
+    """sw_ragged_kernel's launches so far, in both lane forms."""
+    from swimm_tpu_torch.ops import scorer
+    return scorer.score_tiles.launches + scorer.score_tiles.pair_launches
+
+
+def planted_case(rng, mat, q, planted, n_blocks, L, V=128):
+    """n_blocks (L, V) blocks of random lanes of codes 2-19 (1-299 long),
+    PAD behind them, planted {(block, lane): codes} laid over them: (tiles
+    and outrow on the card, the C oracle's (n_blocks, V) scores of the
+    query q under mat at gaps 10/2)."""
+    from swimm_tpu_torch.alphabet import PAD_CODE
+    from swimm_tpu_torch.ops import cref
+    codes = np.full((n_blocks, L, V), PAD_CODE, np.int8)
+    for b in range(n_blocks):
+        for v in range(V):
+            n = int(rng.integers(1, min(300, L)))
+            codes[b, :n, v] = rng.integers(2, 20, n)
+    for (b, v), x in planted.items():
+        codes[b, :, v] = PAD_CODE
+        codes[b, :len(x), v] = x
+    seqs = [codes[b, :, v][:int(np.argmax(np.append(
+        codes[b, :, v], PAD_CODE) == PAD_CODE))].astype(np.uint8)
+        for b in range(n_blocks) for v in range(V)]
+    exp = cref.sw_score_many(np.asarray(q, np.uint8), seqs, mat, 10,
+                             2).reshape(n_blocks, V)
+    tiles = torch.from_numpy(codes.reshape(-1, 32, V)).cuda()
+    outrow = torch.from_numpy(np.repeat(
+        np.arange(n_blocks, dtype=np.int32), L // 32)).cuda()
+    return tiles, outrow, exp
 
 
 def random_carries(rng, tiles, row_start, big_lanes=range(2, 512, 5),
@@ -361,10 +404,10 @@ def compare_qtile_pairs(rng, errs: dict) -> None:
     equal to the C oracle, the flagged blocks counted exactly, a wrong score
     without the int32 pass, and the int32 form where the pair form does
     not fit."""
-    from swimm_tpu_torch.alphabet import ALPHABET, PAD_CODE
+    from swimm_tpu_torch.alphabet import ALPHABET
     from swimm_tpu_torch.matrices import get_matrix
     from swimm_tpu_torch.models.profile import build_query_profile
-    from swimm_tpu_torch.ops import cref, longquery, scorer
+    from swimm_tpu_torch.ops import longquery, scorer
     k2 = "sw_ragged_qtile_kernel"
     lq = longquery
     for counts, V, tile_m, go, ge in (
@@ -439,25 +482,11 @@ def compare_qtile_pairs(rng, errs: dict) -> None:
          4, 128, 8, {(0, 3): 33000, (1, 40): 31766, (2, 63): 31767})]
     for what, mat, q, planted, n_blocks, L, tile_m, scores in cases:
         V = 128
-        codes = np.full((n_blocks, L, V), PAD_CODE, np.int8)
-        for b in range(n_blocks):
-            for v in range(V):
-                n = int(rng.integers(1, min(300, L)))
-                codes[b, :n, v] = rng.integers(2, 20, n)
-        for (b, v), x in planted.items():
-            codes[b, :, v] = PAD_CODE
-            codes[b, :len(x), v] = x
-        seqs = [codes[b, :, v][:int(np.argmax(np.append(
-            codes[b, :, v], PAD_CODE) == PAD_CODE))].astype(np.uint8)
-            for b in range(n_blocks) for v in range(V)]
-        q = np.asarray(q, np.uint8)
-        exp = cref.sw_score_many(q, seqs, mat, 10, 2).reshape(n_blocks, V)
+        tiles, outrow, exp = planted_case(rng, mat, q, planted, n_blocks, L)
         if any(exp[b, v] != sc for (b, v), sc in scores.items()):
             raise AssertionError(f"{what}: planted scores {scores} differ "
                                  "from the oracle")
-        tiles = torch.from_numpy(codes.reshape(-1, 32, V)).cuda()
-        outrow = torch.from_numpy(np.repeat(
-            np.arange(n_blocks, dtype=np.int32), L // 32)).cuda()
+        q = np.asarray(q, np.uint8)
         qp = torch.from_numpy(build_query_profile(q, mat, 8)).cuda()
         n_rows = n_blocks
         limit = lq.pair_limit(int(qp.max()))
@@ -519,6 +548,85 @@ def compare_qtile_pairs(rng, errs: dict) -> None:
              f"{max_err(got, ref)}")
 
 
+def compare_tiles_pairs(rng, errs: dict) -> None:
+    """Kernel 1's 16-bit guard through score_tiles (its pair form against
+    its plain version: compare_kernels): lanes past 32,767 (a matrix with
+    A/A 1,000; a 1,928-aa W run under PAM250, whose W/W of 17 is the only
+    match score that passes 32,767 in 2,048 rows), at or above T and just
+    below it, over several blocks, equal to the C oracle, the flagged
+    blocks re-scored in int32 and counted exactly, the pair form alone
+    exact below T, at least T above it and wrong past 32,767; then the
+    int32 form where the pair form does not fit."""
+    from swimm_tpu_torch.alphabet import ALPHABET
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import scorer
+    k1 = "sw_ragged_kernel"
+    st = scorer.score_tiles
+    W = ALPHABET.index("W")
+    big = get_matrix("BLOSUM62").copy()
+    big[0, 0], big[1, 1], big[2, 2] = 1000, 100, 1
+    cases = [  # (what, matrix, query, {(block, lane): codes}, blocks, L,
+        #         {(block, lane): score})
+        ("A/A 1,000", big,
+         np.concatenate([[0] * 33, [1] * 7, [2] * 67,
+                         rng.integers(3, 20, 30)]),
+         {(0, 3): [0] * 33, (1, 40): [0] * 31 + [1] * 7 + [2] * 66,
+          (2, 63): [0] * 31 + [1] * 7 + [2] * 67},
+         4, 128, {(0, 3): 33000, (1, 40): 31766, (2, 63): 31767}),
+        ("PAM250 W run", get_matrix("PAM250"),
+         np.concatenate([rng.integers(2, 20, 20), [W] * 1928,
+                         rng.integers(2, 20, 20)]),
+         {(0, 1): [W] * 1928, (0, 9): [W] * 1927, (1, 7): [W] * 1926},
+         3, 1952, {(0, 1): 32776, (0, 9): 32759, (1, 7): 32742})]
+    for what, mat, q, planted, n_blocks, L, scores in cases:
+        tiles, outrow, exp = planted_case(rng, mat, q, planted, n_blocks, L)
+        if any(exp[b, v] != sc for (b, v), sc in scores.items()):
+            raise AssertionError(f"{what}: planted scores {scores} differ "
+                                 "from the oracle")
+        qp = torch.from_numpy(build_query_profile(np.asarray(q, np.uint8),
+                                                  mat, 8)).cuda()
+        limit = scorer.pair_limit(int(qp.max()))
+        flagged = int((exp >= limit).any(axis=1).sum())
+        before = (st.rescored_blocks, st.pair_launches, st.launches)
+        got = st(tiles, outrow, n_blocks, qp, 10, 2).cpu().numpy()
+        counted = (st.rescored_blocks - before[0],
+                   st.pair_launches - before[1], st.launches - before[2])
+        raw = scorer._tiles_pairs(tiles, outrow, n_blocks, qp, 10, 2,
+                                  None).cpu().numpy()
+        low = exp < limit
+        e = int(np.abs(got.astype(np.int64) - exp).max())
+        errs[k1] = max(errs[k1], e)
+        if counted != (flagged, 1, 1) or not 0 < flagged < n_blocks:
+            raise AssertionError(f"{what}: rescored blocks, pair and int32 "
+                                 f"launches {counted}, expected "
+                                 f"{(flagged, 1, 1)}")
+        if not (np.array_equal(raw[low], exp[low])
+                and (raw[~low] >= limit).all() and (raw != exp).any()):
+            raise AssertionError(f"{what}: kernel 1's pair form alone is not "
+                                 "exact below T, at least T above it and "
+                                 "wrong past 32,767")
+        note(f"{k1} 16-bit guard, {what} (T={limit}, lanes "
+             f"{sorted(scores.values())}), {n_blocks} blocks: max_abs_err="
+             f"{e} vs the C oracle; rescored blocks {counted[0]} of "
+             f"{flagged} flagged, launches pairs {counted[1]} int32 "
+             f"{counted[2]}; without the int32 pass "
+             f"{int((raw != exp).sum())} lanes wrong")
+    for V, go, ge in ((128, 16000, 385), (96, 10, 2)):
+        tiles, outrow, n_rows = ragged_case(rng, [2, 1, 3], V)
+        qp = profile(rng, 448)
+        before = st.pair_launches
+        got = st(tiles, outrow, n_rows, qp, go, ge)
+        ref = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, go, ge)
+        torch.cuda.synchronize()
+        if st.pair_launches != before:
+            raise AssertionError(f"{k1} V={V} gaps {go}/{ge} took the pair "
+                                 "form")
+        errs[k1] = max(errs[k1], max_err(got, ref))
+        note(f"{k1} V={V} gaps {go}/{ge} (the int32 form): max_abs_err="
+             f"{max_err(got, ref)}")
+
+
 def compare_kernels(errs: dict) -> None:
     """Phase 2: both kernels vs their plain versions, on the card."""
     from swimm_tpu_torch.ops import longquery, scorer
@@ -551,14 +659,20 @@ def compare_kernels(errs: dict) -> None:
     for counts, V, m, go, ge, ceil in cases:
         tiles, outrow, n_rows = ragged_case(rng, counts, V)
         qp = profile(rng, m)
-        got = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
-                                 ceiling=ceil)
+        # score_tiles takes the pair form where there is no ceiling (every
+        # V here is a multiple of 64); the int32 form is checked apart
+        got = {"score_tiles": scorer.score_tiles(tiles, outrow, n_rows, qp,
+                                                 go, ge, ceiling=ceil)}
+        if ceil is None:
+            got["int32"] = scorer.score_tiles_int32(tiles, outrow, n_rows,
+                                                    qp, go, ge)
         ref = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, go, ge,
                                      ceiling=ceil)
         torch.cuda.synchronize()
-        errs[k1] = max(errs[k1], max_err(got, ref))
+        e = {form: max_err(g, ref) for form, g in got.items()}
+        errs[k1] = max(errs[k1], *e.values())
         note(f"{k1} V={V} m={m} gaps={go}/{ge} ceiling={ceil}: "
-             f"max_abs_err={max_err(got, ref)}")
+             f"max_abs_err {e}")
     # the lane limit is checked before any launch: every kernel is built
     # for at most 512 threads a block
     tiles, outrow, n_rows = ragged_case(rng, [1], 1024)
@@ -598,6 +712,7 @@ def compare_kernels(errs: dict) -> None:
          f"max_abs_err={e}")
     compare_qtile_carry_form(rng, errs)
     compare_qtile_pairs(rng, errs)
+    compare_tiles_pairs(rng, errs)
 
 
 def chunk_case(rng, B, L, V):
@@ -897,14 +1012,14 @@ def compare_at_gap_bound(errs: dict) -> None:
         note(f"gaps {go}/{ge} (scorer.MAX_GAP = {big}): max_abs_err {e}")
     tiles, outrow, n_rows = ragged_case(rng, [1])
     for go, ge in ((big + 1, 0), (0, big + 1)):
-        before = scorer.score_tiles.launches
+        before = kernel1_launches()
         try:
             scorer.score_tiles(tiles, outrow, n_rows, profile(rng, 8), go, ge)
         except ValueError as exc:
             note(f"gaps {go}/{ge} refused before a launch: {exc}")
         else:
             raise AssertionError(f"gaps {go}/{ge} must be refused")
-        if scorer.score_tiles.launches != before:
+        if kernel1_launches() != before:
             raise AssertionError("a refused gap must not launch")
 
 
@@ -1212,7 +1327,9 @@ def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
     width = stats.SCORE_CAP + 1
     _, bin_logl = stats.length_bins(packed.lengths)
     for q, r in zip(queries, e_res):
-        lanes = engine.score_lanes(dev_db, qprof(q), "tiles", config)
+        qp, bounds = engine.host_profile(q, config)
+        lanes = engine.score_lanes(dev_db, qp.cuda(), "tiles", config,
+                                   bounds)
         table = engine.score_hist(lanes, mask, lane_bins).cpu().numpy()
         host = np.bincount(
             bins * width + np.clip(lanes.cpu().numpy()[valid], 0,
@@ -1359,13 +1476,15 @@ def window_kernel_ms(dev_db, spans, cum, qp) -> list:
     resident stream's tiles (the same codes the streamed window holds)."""
     from swimm_tpu_torch.ops import scorer
     tiles, outrow = dev_db[:2]
+    bounds = scorer.profile_bounds(qp)
     out = []
     for g0, g1 in spans:
         t0, t1 = int(cum[g0]), int(cum[g1])
         rs = torch.from_numpy(cum[g0:g1 + 1] - t0).cuda()
         orow = (outrow[t0:t1] - g0).contiguous()
         out.append(cuda_ms(lambda: scorer.score_tiles(
-            tiles[t0:t1], orow, g1 - g0, qp, 10, 2, row_start=rs)))
+            tiles[t0:t1], orow, g1 - g0, qp, 10, 2, row_start=rs,
+            bounds=bounds)))
     return out
 
 
@@ -1383,7 +1502,6 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     from swimm_tpu_torch.models import engine, stream
     from swimm_tpu_torch.models.engine import (SearchConfig,
                                                score_db_streaming, search)
-    from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.ops import longquery
     out, phases = {}, {}
     spacked = load_db(db_dir)
@@ -1391,8 +1509,8 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
         raise AssertionError("load_db did not memmap the chunk files")
     layout = stream.stream_layout(spacked)
     cum, V, jt = layout["cum"], layout["V"], layout["jt"]
-    qp0 = torch.from_numpy(build_query_profile(
-        queries[0].codes, config.matrix, config.m_multiple)).cuda()
+    qp0, bounds0 = engine.host_profile(queries[0], config)
+    qp0 = qp0.cuda()
 
     def plan(wt):
         spans, r_cap = stream.plan_windows(layout, wt)
@@ -1441,7 +1559,7 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     prof = device_breakdown(lambda: search(spacked, queries, sconfig))
     win_ms = window_kernel_ms(dev_db, spans, cum, qp0)
     whole_ms = cuda_ms(lambda: engine.score_lanes(dev_db, qp0, "tiles",
-                                                  config))
+                                                  config, bounds0))
     out["batch20_8192"] = {
         "windows": n_win, "width_tiles": wt, "r_cap": r_cap,
         "runs": runs, "profiled": prof, "h2d_bytes": h2d_bytes(spans),
@@ -1955,11 +2073,13 @@ def sharded_paths(db_dir, packed, spacked, dev_db, queries, results, long_q,
     # the shards run one after another on one card: each launch ends on its
     # own longest block
     shards = build_tile_shards(packed, make_mesh(devices=["cuda:0"] * 4))
+    bounds0 = scorer.profile_bounds(qp0)
     shard_ms = [cuda_ms(lambda: scorer.score_tiles(
-        s.tiles, s.outrow, s.n_rows, qp0, 10, 2, row_start=s.row_start))
-        for _, s in sorted(shards["shards"].items())]
+        s.tiles, s.outrow, s.n_rows, qp0, 10, 2, row_start=s.row_start,
+        bounds=bounds0)) for _, s in sorted(shards["shards"].items())]
     whole_ms = cuda_ms(lambda: scorer.score_tiles(
-        dev_db[0], dev_db[1], dev_db[2], qp0, 10, 2, row_start=dev_db[3]))
+        dev_db[0], dev_db[1], dev_db[2], qp0, 10, 2, row_start=dev_db[3],
+        bounds=bounds0))
     out["b"]["query0_kernel_ms_per_shard"] = shard_ms
     out["b"]["query0_kernel_ms_whole_stream"] = whole_ms
     out["b"]["shard_tiles"] = [int(s.tiles.shape[0]) for _, s in
@@ -2107,10 +2227,10 @@ def card_fuzz(search_kernels, counted) -> dict:
     round at the reference's sizes. Each of kernels 1-5 must have launched.
     Nothing is caught. Returns the numbers and the phase's seconds."""
     from swimm_tpu_torch.benchmarks import acceptance, fuzz
-    from swimm_tpu_torch.ops import longquery
+    from swimm_tpu_torch.ops import longquery, scorer
     t_phase = time.perf_counter()
     out = {"seed": 0, "matrices": [], "routes": [], "ceilings": [],
-           "long_rounds": 0}
+           "long_rounds": 0, "long_pam250_rounds": 0}
 
     def run():
         rng = np.random.default_rng(0)
@@ -2129,6 +2249,7 @@ def card_fuzz(search_kernels, counted) -> dict:
                              ("ceilings", [draw.ceiling])):
                 out[key] += [x for x in new if x not in out[key]]
             out["long_rounds"] += draw.long
+            out["long_pam250_rounds"] += draw.long and draw.matrix == "PAM250"
             if (set(out["matrices"]) == set(fuzz.MATRICES)
                     and set(out["routes"]) == set(fuzz.ROUTES)):
                 break
@@ -2154,6 +2275,7 @@ def card_fuzz(search_kernels, counted) -> dict:
                               "s": time.perf_counter() - t}
 
     longquery.score_tiles_long.rescored_blocks = 0
+    scorer.score_tiles.rescored_blocks = 0
     _, seen = counted(run, main=False)
     out["launches"] = {name: seen[name] for name in search_kernels}
     for name in search_kernels:
@@ -2168,6 +2290,15 @@ def card_fuzz(search_kernels, counted) -> dict:
     if out["kernel2"]["rescored_blocks"] != out["long_rounds"]:
         raise AssertionError(f"phase 20: {out['kernel2']} after "
                              f"{out['long_rounds']} long rounds")
+    # kernel 1 by lane form; its planted block passes the limit only in a
+    # long PAM250 round (k1_planted)
+    out["kernel1"] = {"pairs": scorer.score_tiles.pair_launches,
+                      "int32": scorer.score_tiles.launches,
+                      "rescored_blocks": scorer.score_tiles.rescored_blocks}
+    if out["kernel1"]["rescored_blocks"] != out["long_pam250_rounds"]:
+        raise AssertionError(f"phase 20: {out['kernel1']} after "
+                             f"{out['long_pam250_rounds']} long PAM250 "
+                             "rounds")
     out["phase_s"] = time.perf_counter() - t_phase
     note(f"phase 20 (card fuzz) {out['phase_s']:.1f} s: {out['rounds']} "
          f"rounds from seed 0 ({out['long_rounds']} long) in "
@@ -2177,7 +2308,8 @@ def card_fuzz(search_kernels, counted) -> dict:
          f"({out['config1']['s']:.1f} s); "
          f"fuzz_packed round of {out['fuzz_packed']['queries']} queries "
          f"equal ({out['fuzz_packed']['s']:.1f} s); launches "
-         f"{out['launches']}; kernel 2 {out['kernel2']}")
+         f"{out['launches']}; kernel 2 {out['kernel2']}; kernel 1 "
+         f"{out['kernel1']}")
     return out
 
 
@@ -2400,7 +2532,21 @@ def main(argv=None) -> int:
             longquery.score_qtile.launches = n
             longquery.score_qtile_pairs.launches = 0
 
-    counters = {"sw_ragged_kernel": scorer.score_tiles,
+    class Kernel1:
+        """sw_ragged_kernel's launches in both lane forms, read and set to
+        0 like one wrapper's counter (the pair form's own:
+        scorer.score_tiles.pair_launches)."""
+
+        @property
+        def launches(self):
+            return kernel1_launches()
+
+        @launches.setter
+        def launches(self, n):
+            scorer.score_tiles.launches = n
+            scorer.score_tiles.pair_launches = 0
+
+    counters = {"sw_ragged_kernel": Kernel1(),
                 "sw_ragged_qtile_kernel": Kernel2(),
                 "sw_ragged_packed_kernel": scorer.score_tiles_packed,
                 "sw_chunk_kernel": scorer.score_chunks,
@@ -2479,11 +2625,19 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     search(packed, queries, config)                      # warm-up
     phases["warmup_search_s"] = time.perf_counter() - t
+    scorer.score_tiles.rescored_blocks = 0
     (results, met), seen = counted(lambda: search(packed, queries, config))
+    forms1 = {"pairs": scorer.score_tiles.pair_launches,
+              "int32": scorer.score_tiles.launches,
+              "rescored_blocks": scorer.score_tiles.rescored_blocks}
     note(f"20-query search: {met.seconds:.3f} s, {met.gcups:.1f} GCUPS "
-         f"(padded {met.padded_gcups:.1f}), launches {seen}")
-    if seen["sw_ragged_kernel"] != N_QUERIES:
-        raise AssertionError(f"expected {N_QUERIES} launches, got {seen}")
+         f"(padded {met.padded_gcups:.1f}), launches {seen}; kernel 1 by "
+         f"lane form and the blocks scored again {forms1}")
+    if (seen["sw_ragged_kernel"] != N_QUERIES
+            or forms1 != {"pairs": N_QUERIES, "int32": 0,
+                          "rescored_blocks": 0}):
+        raise AssertionError(f"expected {N_QUERIES} launches in the pair "
+                             f"form, got {seen}, {forms1}")
 
     # ---- phase 4: one 5,000-aa query through the query-tiled path ----
     lrng = np.random.default_rng(3)
@@ -2653,16 +2807,22 @@ def main(argv=None) -> int:
         return stream_bytes + 4 * 32 * m + extra_bytes, lanes_pos * m
 
     t = time.perf_counter()
+    bounds1 = scorer.profile_bounds(qp1)
     k1 = lambda: scorer.score_tiles(tiles, outrow, n_rows, qp1, 10, 2,
-                                    row_start=row_start)
+                                    row_start=row_start, bounds=bounds1)
     k1_ms, got1 = timed(k1, reps=3)
+    k1_int32_ms, got1_int32 = timed(lambda: scorer.score_tiles_int32(
+        tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start), reps=3)
     p1_ms, ref1 = timed(lambda: scorer.score_tiles_ref(
         tiles, outrow, n_rows, qp1, 10, 2, row_start=row_start))
-    e1 = max_err(got1, ref1)
+    e1 = max(max_err(got1, ref1), max_err(got1_int32, ref1))
     errs["sw_ragged_kernel"] = max(errs["sw_ragged_kernel"], e1)
-    note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: "
-         f"max_abs_err={e1}")
-    del ref1
+    k1_int32_load = rl.walk_load(rl.walk_sass_per_cell(
+        "sw_ragged", "sw_ragged_kernelILb0ELb0E"))
+    note(f"sw_ragged_kernel vs plain, whole stream at m={m1}: pair form "
+         f"{k1_ms:.3f} ms, int32 form {k1_int32_ms:.3f} ms (SASS a cell "
+         f"{k1_int32_load}), both max_abs_err={e1}")
+    del ref1, got1_int32
     w1 = walk_work(m1, 4 * n_rows * V)
     # how much of kernel 1's time is the tail of long blocks: the stream
     # without its 100 longest blocks (the last rows), and those alone
@@ -2674,9 +2834,11 @@ def main(argv=None) -> int:
     k1_tail = {
         "tiles_without_100_longest": tc, "tiles": T,
         "ms_without_100_longest": cuda_ms(lambda: scorer.score_tiles(
-            tiles[:tc], outrow[:tc], cut, qp1, 10, 2, row_start=rs_head)),
+            tiles[:tc], outrow[:tc], cut, qp1, 10, 2, row_start=rs_head,
+            bounds=bounds1)),
         "ms_100_longest_alone": cuda_ms(lambda: scorer.score_tiles(
-            tiles[tc:], or_tail, 100, qp1, 10, 2, row_start=rs_tail))}
+            tiles[tc:], or_tail, 100, qp1, 10, 2, row_start=rs_tail,
+            bounds=bounds1))}
     note(f"sw_ragged_kernel without the 100 longest blocks ({tc} of {T} "
          f"tiles): {k1_tail['ms_without_100_longest']:.3f} ms; those 100 "
          f"alone: {k1_tail['ms_100_longest_alone']:.3f} ms")
@@ -2880,7 +3042,8 @@ def main(argv=None) -> int:
         # shape, its SASS name in the library
         ("sw_ragged_kernel", "sw_ragged.cu",
          "swimm_tpu/ops/pallas_scorer.py:317", k1_ms, p1_ms, w1,
-         f"T={T} V={V} m={m1}", "sw_ragged_kernelILb0E"),
+         f"T={T} V={V} m={m1}, pair form (int32 form {k1_int32_ms:.3f} ms)",
+         "sw_ragged_kernelILb0ELb1E"),
         ("sw_ragged_qtile_kernel", "sw_ragged.cu",
          "swimm_tpu/ops/longquery.py:208", k2_ms, p2_ms, w2,
          f"T={T} V={V} tile_m={m2}, pair form (int32 form "
@@ -2912,9 +3075,12 @@ def main(argv=None) -> int:
     kernels = []
     for (name, src, replaces, ms, plain_ms, (nbytes, cells), shape,
          sass_name) in rows:
-        b, by = bound(nbytes, opc * cells, int_rate)
-        load = rl.walk_load(rl.walk_sass_per_cell(
-            src[:-3], sass_name, 2 if sass_name.endswith("ILb1E") else 1))
+        # a pair form (its name's last template argument true) does two
+        # cells in each .S16x2 instruction: half the instructions a cell
+        lanes = 2 if sass_name.endswith("Lb1E") else 1
+        b, by = bound(nbytes, opc * cells / lanes, int_rate)
+        load = rl.walk_load(rl.walk_sass_per_cell(src[:-3], sass_name,
+                                                  lanes))
         pb, pby = measured_bound(nbytes, cells, load)
         kernels.append(
             {"name": name, "route": "cuda",

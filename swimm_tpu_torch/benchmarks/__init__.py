@@ -81,10 +81,11 @@ def card() -> str:
 
 def launch_counts() -> dict:
     """Each search kernel's launches so far, by kernel name: the counters
-    its wrapper adds one to at every launch on a card (kernel 2's in both
-    lane forms)."""
+    its wrapper adds one to at every launch on a card (kernels 1 and 2 in
+    both lane forms)."""
     from swimm_tpu_torch.ops import longquery, scorer
-    return {"sw_ragged_kernel": scorer.score_tiles.launches,
+    return {"sw_ragged_kernel": (scorer.score_tiles.launches
+                                 + scorer.score_tiles.pair_launches),
             "sw_ragged_qtile_kernel": (longquery.score_qtile.launches
                                        + longquery.score_qtile_pairs.launches),
             "sw_ragged_packed_kernel": scorer.score_tiles_packed.launches,

@@ -15,10 +15,11 @@ np.minimum), with exact equality:
 
   k4      scorer.score_chunk (sw_chunk_kernel<CEIL>)      qlen <= 2048
   k5      longquery.score_chunk_long (sw_chunk_qtile)     qlen > 2048
-  k1      scorer.score_tiles (sw_ragged_kernel<CEIL>)     qlen <= 2048
+  k1      scorer.score_tiles (sw_ragged_kernel)           qlen <= 2048
   k2      longquery.score_tiles_long (sw_ragged_qtile)    qlen > 2048
   k2_planted  score_tiles_long on the planted stream      qlen > 2048
   k2_int32    longquery.score_tiles_long_int32 on it      qlen > 2048
+  k1_planted  score_tiles on it, the query's first 2,048  qlen > 2048
   k3      scorer.score_tiles_packed (sw_ragged_packed)    every round
   ladder  ladder.score_chunk_adaptive (default tiers)     qlen <= 2048
 
@@ -31,7 +32,12 @@ round's matrix and gaps): a run of the matrix's best-scoring residue as
 the query, one block of 64 lanes that hold runs scoring past 32,767, at the
 pair form's limit and just below it; k2_planted takes it through
 score_tiles_long (kernel 2's pair form, then its int32 pass over the
-flagged block), k2_int32 through the int32 form alone. k3 takes a pack
+flagged block), k2_int32 through the int32 form alone, k1_planted through
+score_tiles (kernel 1's pair form and its int32 pass) with the query cut
+to the 2,048 residues kernel 1 takes, whose lanes pass 32,767 only where a
+match scores 17 (PAM250: 2,048 x 15 stays below the limit). k1 takes the
+pair form where the round has no ceiling and its int32 form where it has
+one. k3 takes a pack
 of 2-6 new queries of 1-300 aa, drawn from a second generator
 default_rng([seed, round]) so that the shared draws stay seed for seed
 equal, packed under the round's matrix and scored over that stream under
@@ -42,8 +48,8 @@ query batches against a 3,000-sequence DB per query and packed, hit for
 hit, and the C oracle on one top hit a round.
 
 Run: python -m swimm_tpu_torch.benchmarks.fuzz [--rounds 12] [--seed 0]
-[--packed] [--device cpu]. One JSON line a round, one of kernel 2's
-launches by lane form and its re-scored blocks, then
+[--packed] [--device cpu]. One JSON line a round, one of kernels 1 and 2's
+launches by lane form and their re-scored blocks, then
 {"fuzz": "PASS"|"FAIL", ...}; exit 1 on any mismatch, whose first
 differing (route, block, lane, got, exp) goes to stderr. Without --device
 cpu it runs on the card, and raises when there is none.
@@ -74,8 +80,8 @@ MATRICES = ["BLOSUM45", "BLOSUM50", "BLOSUM62", "BLOSUM80", "BLOSUM90",
             "PAM30", "PAM70", "PAM250"]
 V = 128            # lanes per block, as fuzz_tpu.py
 SHORT_MAX = 2048   # longest query on the one-pass routes (max_query_pad)
-ROUTES = ("k4", "k5", "k1", "k2", "k2_planted", "k2_int32", "k3",
-          "ladder")
+ROUTES = ("k4", "k5", "k1", "k2", "k2_planted", "k2_int32", "k1_planted",
+          "k3", "ladder")
 PAIR_MAX = 32767   # the largest value of a 16-bit lane
 
 
@@ -236,6 +242,12 @@ def run_round(draw: Draw, device, rng2: np.random.Generator) -> dict:
                                                               pqp, go, ge)
         pexp = cref.sw_score_many(pq, pseqs, mat, go, ge).reshape(pn, 64)
         expected.update(k2_planted=pexp, k2_int32=pexp)
+        k1q = pq[:SHORT_MAX]
+        routes["k1_planted"] = scorer.score_tiles(
+            pt, po, pn, torch.from_numpy(build_query_profile(
+                k1q, draw.matrix, m_multiple=8)).to(dev), go, ge)
+        expected["k1_planted"] = cref.sw_score_many(
+            k1q, pseqs, mat, go, ge).reshape(pn, 64)
     else:
         routes["k4"] = scorer.score_chunk(codes, qp, go, ge, ceiling=ceiling)
         routes["k1"] = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
@@ -266,14 +278,17 @@ def run_round(draw: Draw, device, rng2: np.random.Generator) -> dict:
 
 def fuzz(rounds: int, seed: int, device=None) -> int:
     """fuzz_tpu.main's loop on `device`; returns the failed rounds. Before
-    the summary line, one line of kernel 2's launches in each lane form
-    (on a card) and the blocks it scored again in int32 (one a long round,
-    the planted stream's)."""
+    the summary line, one line of kernels 1 and 2's launches in each lane
+    form (on a card) and the blocks each scored again in int32 (kernel 2:
+    one a long round, the planted stream's; kernel 1: one a long PAM250
+    round)."""
     rng = np.random.default_rng(seed)
     failures = 0
     before = (longquery.score_qtile_pairs.launches,
               longquery.score_qtile.launches,
-              longquery.score_tiles_long.rescored_blocks)
+              longquery.score_tiles_long.rescored_blocks,
+              scorer.score_tiles.pair_launches, scorer.score_tiles.launches,
+              scorer.score_tiles.rescored_blocks)
     for r in range(rounds):
         draw = draw_round(rng)
         res = run_round(draw, device, np.random.default_rng([seed, r]))
@@ -293,7 +308,11 @@ def fuzz(rounds: int, seed: int, device=None) -> int:
         "pairs": longquery.score_qtile_pairs.launches - before[0],
         "int32": longquery.score_qtile.launches - before[1],
         "rescored_blocks": (longquery.score_tiles_long.rescored_blocks
-                            - before[2])}}), flush=True)
+                            - before[2])}, "kernel1": {
+        "pairs": scorer.score_tiles.pair_launches - before[3],
+        "int32": scorer.score_tiles.launches - before[4],
+        "rescored_blocks": (scorer.score_tiles.rescored_blocks
+                            - before[5])}}), flush=True)
     print(json.dumps({"fuzz": "PASS" if not failures else "FAIL",
                       "rounds": rounds, "failures": failures}), flush=True)
     return failures

@@ -22,9 +22,10 @@ rather than taken from its data sheet.
    to reach. High: the nominal bound the search kernels are held to
    (``peak_instruction_rate``: every SM starting 128 thread-instructions a
    clock at its maximum clock, ``ops_per_cell``'s count).
-4. ``measure_kernel_padded_gcups(m)``: sw_ragged_kernel (ops/scorer.py
-   score_tiles) on the JAX function's random inputs, and MFU against the
-   nominal peak.
+4. ``measure_kernel_padded_gcups(m)``: sw_ragged_kernel's int32 form
+   (ops/scorer.py score_tiles_int32; the search takes its 16-bit pair form
+   where the profile allows) on the JAX function's random inputs, and MFU
+   against the nominal peak.
 
 Run: python -m swimm_tpu_torch.benchmarks.roofline [--device cpu]
 prints one JSON line. On the CPU the plain versions run at small sizes and
@@ -75,18 +76,18 @@ WALK = Path(__file__).resolve().parents[1] / "csrc" / "sw_walk_hg.cuh"
 # (csrc/sw_walk_hg.cuh hg_step, one row r of one db position):
 #   (class, per cell, lines of sw_walk_hg.cuh, what each line holds)
 WALK_TERMS = (
-    ("half_rate", 1.0, (339,), "__viaddmax_s32(e[r], nge, hg[r])"),
-    ("half_rate", 1.0, (340,), "__viaddmax_s32_relu(diag,"),
-    ("half_rate", 1.0, (351,), "__viaddmax_s32(f, -goe, t0g)"),
-    ("half_rate", 1.0, (353,), "__viaddmax_s32(f, nge, t0g)"),
-    # the running maximum, two rows per instruction: :344 in kernels 1, 3
-    # and 4, :356 in the carry form (kernels 2 and 5)
-    ("half_rate", 0.5, (344, 356), "__vimax3_s32(gm[g], tprev,"),
-    ("full_rate", 1.0, (349,), "t0 - goe"),
-    ("shared_load", 1.0, (340,), "col[r * TABLE_CODES]"),
+    ("half_rate", 1.0, (371,), "__viaddmax_s32(e[r], nge, hg[r])"),
+    ("half_rate", 1.0, (372,), "__viaddmax_s32_relu(diag,"),
+    ("half_rate", 1.0, (383,), "__viaddmax_s32(f, -goe, t0g)"),
+    ("half_rate", 1.0, (385,), "__viaddmax_s32(f, nge, t0g)"),
+    # the running maximum, two rows per instruction: :376 in kernels 1, 3
+    # and 4, :388 in the carry form (kernels 2 and 5)
+    ("half_rate", 0.5, (376, 388), "__vimax3_s32(gm[g], tprev,"),
+    ("full_rate", 1.0, (381,), "t0 - goe"),
+    ("shared_load", 1.0, (372,), "col[r * TABLE_CODES]"),
 )
 # a VIMNMX in the SASS: on the half-rate pipe
-CEILING_TERM = ("half_rate", 1.0, (341,), "min(t0, ceiling)")
+CEILING_TERM = ("half_rate", 1.0, (373,), "min(t0, ceiling)")
 
 
 def ops_per_cell(m: int, ceiling: bool = False) -> dict:
@@ -214,17 +215,18 @@ def _library_sass(lib: str) -> dict:
 
 
 def walk_sass_per_cell(lib: str = "sw_ragged",
-                       function: str = "sw_ragged_kernelILb0E",
+                       function: str = "sw_ragged_kernelILb0ELb0E",
                        lanes: int = 1, sass: dict | None = None) -> dict:
     """Instructions per DP cell that a search kernel issues, by opcode,
     read from its SASS: the innermost loop over db positions of a 32-row
     strip (the loop with the fewest instructions whose VIADDMNMX count is
     a multiple of 4 x 32; 4 a cell), its instructions over its cells.
     ``function`` is a fragment of the kernel's SASS name in the library
-    ``lib`` (default kernel 1 without the ceiling). What ops_per_cell
-    counts, and the addressing and bookkeeping it leaves out. lanes=2 reads
-    the pair form (kernel 2's sw_ragged_qtile_kernelILb1E), whose loop holds
-    two db positions and two lanes a row (4 VIADDMNMX a row, two cells).
+    ``lib`` (default kernel 1's int32 form without the ceiling). What
+    ops_per_cell counts, and the addressing and bookkeeping it leaves out.
+    lanes=2 reads a pair form (kernel 1's sw_ragged_kernelILb0ELb1E, kernel
+    2's sw_ragged_qtile_kernelILb1E), whose loop holds two db positions and
+    two lanes a row (4 VIADDMNMX a row, two cells).
     sass: a parse_sass reading to count in place of the built library's."""
     sass = _library_sass(lib) if sass is None else sass
     name = next((n for n in sass if function in n), None)
@@ -345,7 +347,7 @@ def speed_of_light_gcups(m: int, rates: dict | None = None,
     if load is None:
         resolve_device(None)
         load = walk_load(walk_sass_per_cell(
-            function=f"sw_ragged_kernelILb{int(ceiling)}E"))
+            function=f"sw_ragged_kernelILb{int(ceiling)}ELb0E"))
     if peak is None:
         peak = peak_instruction_rate()
     t = walk_bound_s(1e9, load, rates)
@@ -383,8 +385,9 @@ def kernel_inputs(m: int, tiles: int, device):
 
 def measure_kernel_padded_gcups(m: int = 1024, tiles: int | None = None,
                                 n_reps: int = 5, device=None) -> dict:
-    """Padded-cell GCUPS of sw_ragged_kernel (ops/scorer.score_tiles, gaps
-    10/2) at profile length m on kernel_inputs, as _stats over n_reps
+    """Padded-cell GCUPS of sw_ragged_kernel in its int32 form, the form
+    whose instructions ops_per_cell counts (ops/scorer.score_tiles_int32,
+    gaps 10/2), at profile length m on kernel_inputs, as _stats over n_reps
     slope estimates between 2 and 6 launches back to back (timed with CUDA
     events). tiles: 1,024 on a card by default (128 blocks, one CUDA block
     each: it fills 128 of 132 SMs once), 16 on the CPU; 50,865 is the
@@ -397,8 +400,8 @@ def measure_kernel_padded_gcups(m: int = 1024, tiles: int | None = None,
 
     def run(depth):
         for _ in range(depth):
-            scorer.score_tiles(codes, outrow, n_rows, qp, 10, 2,
-                               row_start=row_start)
+            scorer.score_tiles_int32(codes, outrow, n_rows, qp, 10, 2,
+                                     row_start=row_start)
 
     run(1)                                   # build + warm
     cells = codes.numel() * m

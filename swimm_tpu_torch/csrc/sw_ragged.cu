@@ -8,8 +8,12 @@
 //   sw_ragged_kernel        replaces swimm_tpu/ops/pallas_scorer.py
 //                           _dp_ragged_kernel (via score_tiles): a query of
 //                           at most 2048 padded rows against every block,
-//                           two workers to a block on the walk of
-//                           sw_walk_hg.cuh.
+//                           on the walk of sw_walk_hg.cuh: in int32
+//                           lanes (<CEIL>, two workers to a block; the
+//                           ladder's ceilings, the fallback, the
+//                           re-score) or in 16-bit lane pairs (<false,
+//                           true>, the pair form: scorer.py says when
+//                           each runs).
 //   sw_ragged_qtile_kernel  replaces swimm_tpu/ops/longquery.py
 //                           _dp_ragged_tile_kernel (via _score_tiles_one_qtile):
 //                           one query tile of a long query, with the H/F
@@ -85,14 +89,29 @@ __device__ __forceinline__ int64_t block_span(
   return t0 * jt * V;
 }
 
+// Each lane's maximum H out of the pair form's maximum of hg = H - goe of
+// lanes 2u (low half) and 2u + 1 (high half), by the threads u < V / 2.
+__device__ __forceinline__ void store_pair_max(int* out, int V, unsigned gm,
+                                               int goe) {
+  if (threadIdx.x < V / 2)
+    reinterpret_cast<int2*>(out)[threadIdx.x] =
+        make_int2(static_cast<short>(gm & 0xFFFFu) + goe,
+                  static_cast<short>(gm >> 16) + goe);
+}
+
 // Kernel 1: whole query, optional saturating ceiling (H clamped at
 // ceiling; a lane whose exact score reaches the ceiling reports exactly
-// ceiling): two kernels chosen by the launcher, not one branch, so neither
-// carries the other's registers. blockDim.x / V workers share one DB block
+// ceiling): kernels chosen by the launcher, not one branch, so none
+// carries another's registers. blockDim.x / V workers share one DB block
 // (sw_walk_hg.cuh); carry is scratch, one (hg, F) pair per (db position,
 // lane), unused when every strip has a worker of its own. At most
-// HG_MAX_THREADS threads, so at most 128 registers.
-template <bool CEIL>
+// HG_MAX_THREADS threads, so at most 128 registers. PAIRS: the pair form
+// (sw_walk_hg.cuh, whole-query edges), two lanes a thread, at most
+// WHOLE_PAIR_WORKERS workers of V / 2 threads, no ceiling; carry is then
+// two (T, jt, V / 2) int32 streams of lane pairs, H and after it F, and
+// each lane's maximum H goes out, exact in every lane that stays below
+// 32,767 minus the largest profile entry and at least that in every other.
+template <bool CEIL, bool PAIRS = false>
 __global__ void __launch_bounds__(HG_MAX_THREADS, 1)
 sw_ragged_kernel(const int8_t* __restrict__ tiles,
                  const int64_t* __restrict__ row_start, int V, int jt,
@@ -102,10 +121,23 @@ sw_ragged_kernel(const int8_t* __restrict__ tiles,
   int npos;
   const int row = block_row();
   const int64_t base = block_span(row_start, row, jt, V, &npos);
-  const int smax = hg_walk_block<CEIL, false>(
-      tiles + base, npos, V, qp, m, goe, ge, ceiling,
-      carry ? carry + base : nullptr, smem, PackedPlanes{});
-  if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
+  if constexpr (PAIRS) {
+    static_assert(!CEIL, "the pair form has no ceiling");
+    unsigned* const ch = reinterpret_cast<unsigned*>(carry);
+    // the F stream follows the H stream: T * jt * V / 2 words
+    const int64_t words = row_start[gridDim.x] * jt * (V / 2);
+    const unsigned gm = hg_walk_block_pairs<true>(
+        tiles + base, npos, V, qp, m, goe, ge,
+        ch ? PairRows{ch + base / 2, ch + words + base / 2}
+           : PairRows{nullptr, nullptr},
+        smem);
+    store_pair_max(out + (int64_t)row * V, V, gm, goe);
+  } else {
+    const int smax = hg_walk_block<CEIL, false>(
+        tiles + base, npos, V, qp, m, goe, ge, ceiling,
+        carry ? carry + base : nullptr, smem, PackedPlanes{});
+    if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
+  }
 }
 
 // Kernel 2: one query tile of m rows; ch/cf hold the row above the tile on
@@ -129,15 +161,12 @@ sw_ragged_qtile_kernel(const int8_t* __restrict__ tiles,
   const int row = block_row();
   const int64_t base = block_span(row_start, row, jt, V, &npos);
   if constexpr (PAIRS) {
-    const unsigned gm = hg_walk_block_pairs(
+    const unsigned gm = hg_walk_block_pairs<false>(
         tiles + base, npos, V, qp, m, goe, ge,
         PairRows{reinterpret_cast<unsigned*>(ch) + base / 2,
                  reinterpret_cast<unsigned*>(cf) + base / 2},
         smem);
-    if (threadIdx.x < V / 2)
-      reinterpret_cast<int2*>(out + (int64_t)row * V)[threadIdx.x] =
-          make_int2(static_cast<short>(gm & 0xFFFFu) + goe,
-                    static_cast<short>(gm >> 16) + goe);
+    store_pair_max(out + (int64_t)row * V, V, gm, goe);
   } else {
     const int smax = hg_walk_block<false, false>(
         tiles + base, npos, V, qp, m, goe, ge, 0,
@@ -225,6 +254,33 @@ extern "C" int sw_ragged_launch(const void* tiles, const void* row_start,
                                     goe, ge, 0, carry, out, stream);
 }
 
+// The pair form of kernel 1: V % 64 == 0, no ceiling, carry null (a
+// one-strip profile) or two (T, jt, V / 2) int32 streams of lane pairs, H
+// then F; the caller keeps the profile and the gaps inside the 16-bit range
+// (scorer.pair_form_fits).
+extern "C" int sw_ragged_pairs_launch(const void* tiles, const void* row_start,
+                                      int n_rows, int V, int jt,
+                                      const void* qp, int m, int goe, int ge,
+                                      void* carry, void* out, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (V % 64) return static_cast<int>(cudaErrorInvalidValue);
+  int threads;
+  size_t shared;
+  // workers of V / 2 threads
+  const cudaError_t err =
+      hg_launch_shape(sw_ragged_kernel<false, true>, V / 2, m,
+                      WHOLE_PAIR_WORKERS, &threads, &shared,
+                      pair_shared_ints);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw_ragged_kernel<false, true><<<n_rows, threads, shared,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, goe, ge, 0, static_cast<int2*>(carry),
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,
                                       int n_rows, int V, int jt,
                                       const void* qp, int m, int goe, int ge,
@@ -236,7 +292,7 @@ extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,
 
 // The pair form of kernel 2: V % 64 == 0, ch/cf (T, jt, V / 2) int32 lane
 // pairs; the caller keeps the profile and the gaps inside the 16-bit range
-// (longquery.pair_form_fits).
+// (scorer.pair_form_fits).
 extern "C" int sw_ragged_qtile_pairs_launch(const void* tiles,
                                             const void* row_start, int n_rows,
                                             int V, int jt, const void* qp,

@@ -38,8 +38,9 @@
 // bandwidth. What it is sensitive to is device-memory LATENCY (one
 // dependent load per position per thread) and the latency between
 // dependent instructions: sw_walk_hg.cuh says how its walk meets both.
-// Kernel 2 also runs in 16-bit lane pairs, two cells per instruction
-// (sw_walk_hg.cuh, the pair form); the other kernels keep int32 lanes.
+// Kernels 1 and 2 also run in 16-bit lane pairs, two cells per
+// instruction (sw_walk_hg.cuh, the pair form); the other kernels keep
+// int32 lanes.
 
 #pragma once
 

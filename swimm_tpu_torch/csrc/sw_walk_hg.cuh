@@ -1,5 +1,6 @@
 // The walk of all five kernels, which score a profile on cooperating
-// workers per DB block: sw_ragged_kernel and sw_ragged_packed_kernel
+// workers per DB block: sw_ragged_kernel (in int32 lanes, and in the pair
+// form below) and sw_ragged_packed_kernel
 // (sw_ragged.cu; they replace swimm_tpu/ops/pallas_scorer.py
 // _dp_ragged_kernel via score_tiles and _dp_packed_kernel via
 // score_tiles_packed), sw_chunk_kernel (sw_chunk.cu; _dp_kernel via
@@ -114,8 +115,10 @@
 // and ptxas places the PRMT that sign-extends it a few instructions after
 // the load, so every position waits out the load's latency and the loads
 // ahead gain nothing; read as uint8_t the load itself widens it, and the
-// code's low five bits, all the walk uses, are the same. Kernels 1 and 3
-// still read it signed and wait (PERF.md §6: ~11% of their time);
+// code's low five bits, all the walk uses, are the same. Kernel 1's int32
+// form and kernel 3 still read it signed and wait (PERF.md §6: ~11% of
+// their time; kernel 1's pair form loads a 16-bit code word, which needs
+// no widening);
 // kernel 4, whose codes address is re-based from a table, gets a plain
 // LDG.E.S8, which needs no PRMT, and kernel 5, re-based the same way, a
 // plain LDG.E.U8.
@@ -141,8 +144,9 @@
 // runs 0.2% slower at S = 2; kernel 2 runs over twenty times as often on
 // the main paths, so both keep four workers. 126 registers, no spills.
 
-// The pair form (sw_ragged_qtile_kernel<true>, kernel 2 alone) runs the
-// carry form's recurrence in 16-bit lane pairs: thread u of a worker holds
+// The pair form (kernel 2's sw_ragged_qtile_kernel<true>, and kernel 1's
+// sw_ragged_kernel<false, true> below) runs the carry form's recurrence in
+// 16-bit lane pairs: thread u of a worker holds
 // lanes 2u and 2u + 1 in the two halves of every register (hg, e, f, the
 // diagonal, the running maximum), so a worker is V / 2 threads, one 16-bit
 // load a position brings both lanes' codes, and sm_90's .S16x2 add-max
@@ -168,6 +172,28 @@
 // lock steps of 16 positions 0.6% slower; loads one position ahead 2%
 // slower; the join by PRMT or from a 16-bit table no faster.
 //
+// Kernel 1 in the pair form (WHOLE) walks a whole query, not a tile of
+// one. Its first row has no row above: H = 0 and no F, which the first
+// strip takes as constants (H = 0 and F = -goe, the pair form's "no F",
+// since t0 >= 0) and not from a carry stream: they are exactly the carries
+// a fresh first tile of kernel 2 reads, so the two kernels run one
+// recurrence. Its last strip writes no row below (nothing follows the
+// query). Device memory then holds only the hand-off from the last worker
+// of a round to worker 0 of the next: two (T, jt, V / 2) int32 streams of
+// lane pairs, H and F, 4 bytes per (db position, lane) against the int32
+// form's 8, and none for a one-strip profile (m <= 32). The tests for a
+// missing row cost 3.01 half-rate instructions a cell against kernel 2's
+// 2.91. Measured (NVIDIA H100 80GB HBM3, 700 W; tools/qtile_variants.py in
+// turns with the parent; query 0, m = 448): the whole 50,865-tile stream
+// 35.72 ms in the int32 form, 22.54 in the pair form with four workers of
+// 64 threads, 22.08 with two; the stream's last 8,192-tile window, its
+// longest blocks, 17.05, 9.54 and 12.35 ms. Four workers: two leave no
+// worker slot idle at 14 strips, but four walk a long block on twice the
+// warps, and the streamed search spends a third of a batch in its last
+// window (PERF.md §5). Interior strips on kernel 2's step (no tests): 2.88
+// a cell, 22.31 ms, but 9.99 ms on the last window (128 registers); not
+// taken.
+//
 // Why the pair form is exact, and where it stops. .S16x2 additions wrap.
 // Every quantity of a lane is bounded by its H: hg = H - goe >= -goe,
 // E in [0, H - goe] (clamped at 0: t0 = max(diag, E, 0) is unchanged),
@@ -177,20 +203,23 @@
 // while 2 goe <= 32,768 (e - ge, f - goe, f - ge, t0 - goe, H - goe);
 // hg + goe, to the carries and the ring, gives back an H of the lane; and
 // S + goe fits 16 bits while max S + goe <= 32,767 (the wrapper checks
-// both, and V % 64 == 0: longquery.pair_form_fits). The one that can pass
+// both, and V % 64 == 0: scorer.pair_form_fits). The one that can pass
 // 32,767 is the diagonal, hg(i-1,j-1) + S + goe = H(i-1,j-1) + S, and only
 // if H(i-1,j-1) > 32,767 - S >= T = 32,767 - max S. Take the first
 // addition of a lane that wraps: every value before it is exact, so the
 // H(i-1,j-1) it read was exact and at least T + 1, and that H is in the
 // lane's running maximum of some tile (this one, or the tile above, whose
-// bottom row the carry brings in). The maximum only grows, so the lane
-// reports at least T + 1 in that tile. A lane whose maxima all stay below
-// T never wrapped and is exact, scores and carries. longquery's
-// score_tiles_long takes the maximum over tiles and scores every DB block
-// with a lane at or above T again in int32 (kernel 2's int32 form on a
-// sub-stream of those blocks), or skips that check when the sum of the
-// profile's row maxima, a bound on every H, is below T. Lanes never mix:
-// every operation works on each half alone (the LOP3 join too).
+// bottom row the carry brings in; kernel 1 has one tile, the query). The
+// maximum only grows, so the lane reports at least T + 1 in that tile. A
+// lane whose maxima all stay below T never wrapped and is exact, scores and
+// carries. longquery's score_tiles_long takes the maximum over tiles and
+// scores every DB block with a lane at or above T again in int32 (kernel
+// 2's int32 form on a sub-stream of those blocks), and scorer's
+// score_tiles does the same with kernel 1's int32 form; each skips that
+// check when the sum of the profile's row maxima, a bound on every H, is
+// below T (BLOSUM62: 11 a row, 22,528 for kernel 1's longest profile of
+// 2,048 rows, below its T of 32,756). Lanes never mix: every operation
+// works on each half alone (the LOP3 join too).
 //
 #pragma once
 
@@ -213,6 +242,9 @@ constexpr int QTILE_WORKERS = 4;
 // S at most in the pair form (sw_ragged_qtile_kernel<true>: workers of V / 2
 // threads; see the top of this file).
 constexpr int QTILE_PAIR_WORKERS = 4;
+// S at most in kernel 1's pair form (sw_ragged_kernel<false, true>: four
+// against two, see the top of this file).
+constexpr int WHOLE_PAIR_WORKERS = 4;
 constexpr int HG_MAX_THREADS = 512; // S * V at most, so V at most
 constexpr int SEG_ROWS = 8;         // rows per segment group of a packed
                                     // multi-query profile
@@ -576,8 +608,10 @@ __host__ __device__ inline size_t pair_shared_ints(int workers, int W) {
 
 // hg_step in the pair form: one step of a strip of R rows for lanes 2u and
 // 2u + 1, n db positions from `codes` (one 16-bit load a position gives
-// both lanes' codes; stride W). top and bot as in the carry form.
-template <int R>
+// both lanes' codes; stride W). top and bot as in the carry form; in the
+// whole-query form (WHOLE) a null top.h is no row above (H = 0, F = -goe,
+// which acts as no F) and a null bot.h no row below.
+template <int R, bool WHOLE>
 __device__ __forceinline__ void hg_step_pairs(
     unsigned (&hg)[STRIP], unsigned (&e)[STRIP], unsigned& diag_top,
     unsigned& gm, const uint16_t* __restrict__ codes, int n, int W,
@@ -591,7 +625,8 @@ __device__ __forceinline__ void hg_step_pairs(
     top_q[a] = make_uint2(0, ngoe2);
     if (a < n) {
       code_q[a] = codes[(int64_t)a * W];
-      top_q[a] = make_uint2(top.h[(int64_t)a * W], top.f[(int64_t)a * W]);
+      if (!WHOLE || top.h)
+        top_q[a] = make_uint2(top.h[(int64_t)a * W], top.f[(int64_t)a * W]);
     }
   }
 #pragma unroll 2
@@ -608,7 +643,8 @@ __device__ __forceinline__ void hg_step_pairs(
     if (j + HG_AHEAD < n) {
       const int64_t at = (int64_t)(j + HG_AHEAD) * W;
       code_q[HG_AHEAD - 1] = codes[at];
-      top_q[HG_AHEAD - 1] = make_uint2(top.h[at], top.f[at]);
+      if (!WHOLE || top.h)
+        top_q[HG_AHEAD - 1] = make_uint2(top.h[at], top.f[at]);
     }
     const unsigned* __restrict__ lo = prof + (code & (TABLE_CODES - 1));
     const unsigned* __restrict__ hi =
@@ -632,8 +668,10 @@ __device__ __forceinline__ void hg_step_pairs(
         tprev = hg[r];
       }
     }
-    bot.h[(int64_t)j * W] = __vadd2(hg[R - 1], goe2);   // real H
-    bot.f[(int64_t)j * W] = f;
+    if (!WHOLE || bot.h) {
+      bot.h[(int64_t)j * W] = __vadd2(hg[R - 1], goe2);   // real H
+      bot.f[(int64_t)j * W] = f;
+    }
   }
 }
 
@@ -644,6 +682,12 @@ __device__ __forceinline__ void hg_step_pairs(
 // points at the DB block's first position (int8, stride V), carry at its
 // first word of the pair carries (stride W). Returns the pair's maximum of
 // hg = H - goe over the tile's rows (each half), in the threads of worker 0.
+// WHOLE: the profile is a whole query (kernel 1), not a tile of one. The
+// first strip then reads no row above and the last strip writes none below,
+// so carry is only the scratch through which the last worker of a round
+// hands its bottom row to worker 0 of the next (null when no round follows
+// another: one strip).
+template <bool WHOLE>
 __device__ __forceinline__ unsigned hg_walk_block_pairs(
     const int8_t* __restrict__ codes, int npos, int V,
     const int* __restrict__ qp, int m, int goe, int ge,
@@ -711,12 +755,16 @@ __device__ __forceinline__ unsigned hg_walk_block_pairs(
         bot.h = ri + (k * 2 + (t & 1)) * 2 * slot;
         bot.f = bot.h + slot;
       }
+      if constexpr (WHOLE) {       // the query's own top and bottom rows
+        if (s == 0) top.h = nullptr;
+        if (s == n_strips - 1) bot.h = nullptr;
+      }
       if (rows == STRIP) {
-        hg_step_pairs<STRIP>(hg, e, diag_top, gm, cw + off, n, W, prof, top,
-                             bot, goe2, ngoe2, nge2);
+        hg_step_pairs<STRIP, WHOLE>(hg, e, diag_top, gm, cw + off, n, W,
+                                    prof, top, bot, goe2, ngoe2, nge2);
       } else {
-        hg_step_pairs<STRIP_TAIL>(hg, e, diag_top, gm, cw + off, n, W, prof,
-                                  top, bot, goe2, ngoe2, nge2);
+        hg_step_pairs<STRIP_TAIL, WHOLE>(hg, e, diag_top, gm, cw + off, n, W,
+                                         prof, top, bot, goe2, ngoe2, nge2);
       }
     }
     if (S > 1) __syncthreads();

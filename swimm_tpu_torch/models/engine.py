@@ -336,13 +336,24 @@ def lane_scorer(mode: str):
 
 
 def score_lanes(dev_db, qp: torch.Tensor, mode: str,
-                config: SearchConfig) -> torch.Tensor:
-    """(n_rows * V,) int32 scores of every lane for one (32, m) profile."""
+                config: SearchConfig, bounds: tuple) -> torch.Tensor:
+    """(n_rows * V,) int32 scores of every lane for one (32, m) profile.
+    bounds: scorer.profile_bounds of the profile, taken on the host where
+    it was built (host_profile), so that no launch waits for the device."""
     tiles, outrow, n_rows, row_start = dev_db[:4]
     prec = kernel_precision(config)
     fn = lane_scorer(mode)
     return fn(tiles, outrow, n_rows, qp, config.gap_open, config.gap_extend,
-              precision=prec, row_start=row_start).reshape(-1)
+              precision=prec, row_start=row_start,
+              bounds=bounds).reshape(-1)
+
+
+def host_profile(query, config: SearchConfig):
+    """One query's (32, m) int32 profile on the host and its
+    scorer.profile_bounds, for score_lanes."""
+    qp = torch.from_numpy(build_query_profile(query.codes, config.matrix,
+                                              config.m_multiple))
+    return qp, scorer.profile_bounds(qp)
 
 
 def device_top_k(scores: torch.Tensor, mask: torch.Tensor,
@@ -456,12 +467,11 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
         kernel = lane_scorer(mode).kernel
         for p in positions:
             with span("engine.profile"):
-                qp = torch.from_numpy(build_query_profile(
-                    queries[p].codes, config.matrix,
-                    config.m_multiple)).to(dev)
+                qp, bounds = host_profile(queries[p], config)
+                qp = qp.to(dev)
             with span("engine.launch", kernel=kernel,
                       cells=queries[p].length * int(packed.total_residues)):
-                scores = score_lanes(dev_db, qp, mode, config)
+                scores = score_lanes(dev_db, qp, mode, config, bounds)
             with span("engine.top_k"):
                 v, si = device_top_k(scores, mask, lane2sorted, k)
             order.append(p)
@@ -600,8 +610,8 @@ def score_db_streaming(packed: PackedDb, query: FastaRecord,
         raise ValueError("max_in_flight must be positive")
     check_supported(config)
     dev = resolve_device(device)
-    qp = torch.from_numpy(build_query_profile(
-        query.codes, config.matrix, config.m_multiple)).to(dev)
+    qp, bounds = host_profile(query, config)
+    qp = qp.to(dev)
     mode = select_mode(qp.shape[1])
     layout = stream_layout(packed)
     host = torch.zeros((layout["n_rows"], layout["V"]), dtype=torch.int32,
@@ -609,7 +619,7 @@ def score_db_streaming(packed: PackedDb, query: FastaRecord,
     for tiles, outrow, row_start, g0, n_w in stream_windows(
             packed, window_tiles, max_in_flight, dev):
         scores = score_lanes((tiles, outrow, n_w, row_start), qp, mode,
-                             config)
+                             config, bounds)
         host[g0:g0 + n_w].copy_(scores.view(n_w, -1), non_blocking=True)
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()

@@ -453,7 +453,6 @@ def search_streaming_batch(packed, queries, config, device=None):
     lane positions dispatched per query row) — the latter two feed the
     padded-cell accounting in engine.search()."""
     from swimm_tpu_torch.models import engine
-    from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.utils import stats
 
     check_streamable(config)
@@ -471,10 +470,9 @@ def search_streaming_batch(packed, queries, config, device=None):
         kernel = engine.lane_scorer(mode).kernel
         for p in positions:
             order.append(p)
-            launches.append((mode, kernel, queries[p].length,
-                             torch.from_numpy(build_query_profile(
-                                 queries[p].codes, config.matrix,
-                                 config.m_multiple)).to(dev)))
+            qp, bounds = engine.host_profile(queries[p], config)
+            launches.append((mode, kernel, queries[p].length, qp.to(dev),
+                             bounds))
     if not spans or not queries:
         return [[] for _ in queries], padded_rows, lane_positions
     merge = resolve_stream_scores(config, len(queries), n_rows, r_cap, V)
@@ -496,11 +494,13 @@ def search_streaming_batch(packed, queries, config, device=None):
         real = int(residues[g0:g0 + n_w].sum())
         vs, sis = [], []
         with span("stream.window", tiles=int(tiles.shape[0]), rows=n_w):
-            for row, (mode, kernel, length, qp) in enumerate(launches):
+            for row, (mode, kernel, length, qp, bounds) in enumerate(
+                    launches):
                 with span("engine.launch", kernel=kernel,
                           cells=length * real):
                     scores = engine.score_lanes(
-                        (tiles, outrow, n_w, row_start), qp, mode, config)
+                        (tiles, outrow, n_w, row_start), qp, mode, config,
+                        bounds)
                 if merge == "buffer":
                     buf[row, g0:g0 + n_w] = scores.view(n_w, V)
                     continue

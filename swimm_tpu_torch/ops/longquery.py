@@ -25,7 +25,9 @@ so, since the H that first passes the limit is exact and goes into it. So
 after the last tile every DB block with a lane at or above the limit is
 scored again over all query tiles by the int32 form, on a sub-stream of
 those blocks, and its scores replace the pair form's:
-``score_tiles_long.rescored_blocks`` counts them.
+``score_tiles_long.rescored_blocks`` counts them. The bound, the limit and
+the lane-pair helpers are ops/scorer.py's (kernel 1 has a pair form too),
+imported here.
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ from swimm_tpu_torch.alphabet import PAD_SCORE
 from swimm_tpu_torch.ops.scorer import (NEG, ChunkTable, check_chunk,
                                         check_gaps, check_precision,
                                         check_stream, chunk_as_stream,
-                                        chunk_kernels, kernels, raise_on,
-                                        row_starts, substream, walk_ref)
+                                        chunk_kernels, from_pairs, kernels,
+                                        pair_form_fits, pair_limit,
+                                        pair_word, profile_bounds, raise_on,
+                                        rescore_flagged, row_starts,
+                                        to_pairs, walk_ref)
 
 LONG_TILE_M = 1024   # query rows per tile (one kernel launch each)
 
@@ -107,50 +112,6 @@ def score_qtile(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
 
 
 score_qtile.launches = 0   # sw_ragged_qtile_kernel launches
-
-
-PAIR_MAX = 32767   # the largest value of a 16-bit lane
-
-
-def pair_form_fits(V: int, gap_open: int, gap_extend: int, lo: int,
-                   hi: int) -> bool:
-    """Whether the pair form of kernel 2 may score V lanes at these gaps
-    with profile entries in lo..hi: workers of V / 2 threads fill whole
-    warps, every staged entry S + goe fits 16 bits, and F - goe >= -2 goe
-    does not wrap (csrc/sw_walk_hg.cuh's note gives the proof)."""
-    goe = gap_open + gap_extend
-    return (V % 64 == 0 and 2 * goe <= PAIR_MAX + 1 and lo >= -PAIR_MAX - 1
-            and hi + goe <= PAIR_MAX)
-
-
-def pair_limit(hi: int) -> int:
-    """T: below it a lane of the pair form is exact for a profile whose
-    largest entry is hi (no H + S can pass 32,767 while H < T)."""
-    return PAIR_MAX - hi
-
-
-def pair_word(x: int) -> int:
-    """The int32 lane pair that holds the 16-bit value x in both lanes."""
-    w = (x & 0xFFFF) * 0x10001
-    return w - (1 << 32) if w >= 1 << 31 else w
-
-
-def to_pairs(x: torch.Tensor) -> torch.Tensor:
-    """(..., V) int32 values in the int16 range (any others keep their low 16
-    bits) -> (..., V / 2) int32 lane pairs: lane 2u in the low half, 2u + 1
-    in the high half."""
-    w = (x[..., 0::2].long() & 0xFFFF) | ((x[..., 1::2].long() & 0xFFFF)
-                                          << 16)
-    return torch.where(w >= 1 << 31, w - (1 << 32), w).int()
-
-
-def from_pairs(p: torch.Tensor) -> torch.Tensor:
-    """(..., V / 2) int32 lane pairs -> (..., V) int32, each half
-    sign-extended."""
-    w = p.long()
-    lo = ((w & 0xFFFF) ^ 0x8000) - 0x8000
-    hi = (((w >> 16) & 0xFFFF) ^ 0x8000) - 0x8000
-    return torch.stack([lo, hi], dim=-1).flatten(-2).int()
 
 
 def score_qtile_pairs_ref(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
@@ -230,14 +191,17 @@ def score_tiles_long_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
 def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
                      gap_extend: int, precision: str = "f32",
                      tile_m: int | None = None,
-                     row_start=None) -> torch.Tensor:
+                     row_start=None, bounds=None) -> torch.Tensor:
     """Score a whole-DB ragged tile stream against a query of ANY length
     (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile: in the
-    pair form where pair_form_fits allows it (three scalars of the profile
-    come back from its device), then, unless the sum of the profile's row
-    maxima stays below pair_limit, the int32 form over the blocks that have
-    a lane at or above it (their rows come back too); else in the int32
-    form.
+    pair form where pair_form_fits allows it, then, unless the sum of the
+    profile's row maxima stays below pair_limit, the int32 form over the
+    blocks that have a lane at or above it (rescore_flagged: their rows
+    come back to the host); else in the int32 form. bounds: optional
+    scorer.profile_bounds(qp), as score_tiles takes it (the padding's
+    PAD_SCORE columns move none of the three, since every profile's pad
+    codes score PAD_SCORE already); without it they come back from the
+    profile's device.
 
     Returns (n_rows, V) int32 exact scores.
     """
@@ -247,10 +211,7 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
     qp, n_qt = pad_to_tiles(qp, tile_m)
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
-    # the profile's least and largest entries, and the sum of its rows'
-    # largest entries (at least 0 each): no H can pass that sum
-    lo, hi, top = torch.stack([qp.min(), qp.max(),
-                               qp.amax(dim=0).clamp_min(0).sum()]).tolist()
+    lo, hi, top = profile_bounds(qp) if bounds is None else bounds
     T, jt, V = tiles.shape
     if not pair_form_fits(V, gap_open, gap_extend, lo, hi):
         return score_tiles_long_int32(tiles, outrow, n_rows, qp, gap_open,
@@ -268,16 +229,11 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
                                             row_start)
         best = out if best is None else torch.maximum(best, out)
     del hcar, fcar
-    if top < pair_limit(hi):   # no lane can reach the limit
-        return best
-    rows = torch.nonzero((best >= pair_limit(hi)).any(dim=1)).flatten()
-    rows = rows.cpu().numpy()
-    if len(rows):
-        sub, o, rs = substream(tiles, row_start.cpu().numpy(), rows)
-        best[torch.from_numpy(rows).to(best.device)] = \
-            score_tiles_long_int32(sub, o, len(rows), qp, gap_open,
-                                   gap_extend, tile_m, rs)
-        score_tiles_long.rescored_blocks += len(rows)
+    if top >= pair_limit(hi):   # a lane may have reached the limit
+        score_tiles_long.rescored_blocks += rescore_flagged(
+            best, pair_limit(hi), tiles, row_start,
+            lambda t, o, n, rs: score_tiles_long_int32(
+                t, o, n, qp, gap_open, gap_extend, tile_m, rs))
     return best
 
 

@@ -10,6 +10,19 @@ runs its plain PyTorch version (``*_ref``) on a CPU tensor:
   score_tiles_packed  sw_ragged_packed_kernel  (csrc/sw_ragged.cu)
   score_chunks        sw_chunk_kernel          (csrc/sw_chunk.cu)
 
+``score_tiles`` runs kernel 1 in its pair form (``_tiles_pairs``,
+``sw_ragged_kernel<false, true>``: two lanes a thread in 16-bit halves)
+where the input allows it (``pair_form_fits``, no ceiling), and in its int32
+form (``score_tiles_int32``, ``sw_ragged_kernel<CEIL>``) otherwise. A lane
+of the pair form whose H stays below ``pair_limit`` (32,767 minus the
+largest profile entry) is exact; one that reaches it may have wrapped, and
+its maximum says so, since the H that first passes the limit is exact and
+goes into it. So every DB block with a lane at or above the limit is scored
+again in int32 on a sub-stream of those blocks (``rescore_flagged``;
+``score_tiles.rescored_blocks`` counts them), unless the sum of the
+profile's row maxima, a bound on every H, stays below the limit.
+ops/longquery.py guards kernel 2's pair form the same way.
+
 (``score_chunk`` is the one-chunk case of ``score_chunks``.) There is no
 fallback from one to the other: a CUDA tensor either reaches the kernel or
 raises. Each launch, and every allocation it needs, runs under
@@ -61,6 +74,59 @@ MAX_GAP = 1 << 19  # gap_open and gap_extend at most (real penalties are tens)
 # swimm_tpu has no such check and returns wrong scores past the bound.
 RAMP_LIMIT = (1 << 31) + NEG   # the plain walk's largest (m - 1) * ge
 
+PAIR_MAX = 32767   # the largest value of a 16-bit lane
+
+
+def pair_form_fits(V: int, gap_open: int, gap_extend: int, lo: int,
+                   hi: int) -> bool:
+    """Whether the pair form of kernels 1 and 2 may score V lanes at these
+    gaps with profile entries in lo..hi: workers of V / 2 threads fill
+    whole warps, every staged entry S + goe fits 16 bits, and F - goe >=
+    -2 goe does not wrap (csrc/sw_walk_hg.cuh's note gives the proof)."""
+    goe = gap_open + gap_extend
+    return (V % 64 == 0 and 2 * goe <= PAIR_MAX + 1 and lo >= -PAIR_MAX - 1
+            and hi + goe <= PAIR_MAX)
+
+
+def pair_limit(hi: int) -> int:
+    """T: below it a lane of the pair form is exact for a profile whose
+    largest entry is hi (no H + S can pass 32,767 while H < T)."""
+    return PAIR_MAX - hi
+
+
+def pair_word(x: int) -> int:
+    """The int32 lane pair that holds the 16-bit value x in both lanes."""
+    w = (x & 0xFFFF) * 0x10001
+    return w - (1 << 32) if w >= 1 << 31 else w
+
+
+def to_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(..., V) int32 values in the int16 range (any others keep their low 16
+    bits) -> (..., V / 2) int32 lane pairs: lane 2u in the low half, 2u + 1
+    in the high half."""
+    w = (x[..., 0::2].long() & 0xFFFF) | ((x[..., 1::2].long() & 0xFFFF)
+                                          << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).int()
+
+
+def from_pairs(p: torch.Tensor) -> torch.Tensor:
+    """(..., V / 2) int32 lane pairs -> (..., V) int32, each half
+    sign-extended."""
+    w = p.long()
+    lo = ((w & 0xFFFF) ^ 0x8000) - 0x8000
+    hi = (((w >> 16) & 0xFFFF) ^ 0x8000) - 0x8000
+    return torch.stack([lo, hi], dim=-1).flatten(-2).int()
+
+
+def profile_bounds(qp) -> tuple:
+    """(lo, hi, top) of a (32, m) profile: its least and largest entries,
+    and the sum of its rows' largest entries (at least 0 each), which no H
+    can pass. One copy to the host: callers on the search paths take them
+    from the profile on the host, where it is built, so that a launch on
+    the card does not wait for the device."""
+    return tuple(torch.stack([qp.min(), qp.max(),
+                              qp.amax(dim=0).clamp_min(0).sum()]).tolist())
+
 
 def check_gaps(gap_open: int, gap_extend: int) -> None:
     """gap_open >= 0 and gap_extend >= 0 are load-bearing for exactness:
@@ -104,6 +170,19 @@ def substream(tiles: torch.Tensor, cum: np.ndarray, rows: np.ndarray):
     outrow = torch.from_numpy(np.repeat(
         np.arange(len(rows), dtype=np.int32), counts)).to(dev)
     return sub, outrow, row_starts(outrow, len(rows))
+
+
+def rescore_flagged(best, limit: int, tiles, row_start, rescore) -> int:
+    """The pair form's second pass: every block (row of best, (n_rows, V))
+    with a lane at or above limit is scored again by rescore(tiles, outrow,
+    n_rows, row_start) on a sub-stream of those blocks, in place. The
+    flagged rows come back to the host. Returns their count."""
+    rows = torch.nonzero((best >= limit).any(dim=1)).flatten().cpu().numpy()
+    if len(rows):
+        sub, o, rs = substream(tiles, row_start.cpu().numpy(), rows)
+        best[torch.from_numpy(rows).to(best.device)] = rescore(
+            sub, o, len(rows), rs)
+    return len(rows)
 
 
 def check_precision(precision: str) -> None:
@@ -251,6 +330,8 @@ _INT = ctypes.c_int
 RAGGED_SIGNATURES = {
     "sw_ragged_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT, _INT,
                          _INT, _INT, _INT, _PTR, _PTR, _PTR],
+    "sw_ragged_pairs_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
+                               _INT, _INT, _PTR, _PTR, _PTR],
     "sw_ragged_qtile_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR, _PTR],
     "sw_ragged_qtile_pairs_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR,
@@ -295,13 +376,18 @@ def raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def strip_carry(m: int, shape, device):
+def strip_carry(m: int, shape, device, pairs: bool = False):
     """Carry scratch between the strips of an m-row profile (32 rows, then
     8) for the kernels on the walk of csrc/sw_walk_hg.cuh: one (H - goe, F)
-    int32 pair per code byte, shaped (*shape, 2), or None when the profile
-    fits one strip. Returned so it outlives the launch call."""
+    int32 pair per code byte, shaped (*shape, 2); for kernel 1's pair form
+    (pairs, shape the codes' (T, jt, V)), two int32 streams of lane pairs,
+    H then F, shaped (2, T, jt, V / 2): half the bytes. None when the
+    profile fits one strip. Returned so it outlives the launch call."""
     if m // 32 + (m % 32) // 8 <= 1:
         return None
+    if pairs:
+        return torch.empty((2, *shape[:-1], shape[-1] // 2),
+                           dtype=torch.int32, device=device)
     return torch.empty((*shape, 2), dtype=torch.int32, device=device)
 
 
@@ -309,38 +395,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
-                gap_extend: int, precision: str = "f32",
-                ceiling: int | None = None,
-                row_start=None) -> torch.Tensor:
-    """Score an entire ragged tile stream (all blocks, any lengths) in ONE
-    kernel launch.
-
-    Args:
-      tiles: (T, jt, V) int8 packed db codes, block-major.
-      outrow: (T,) int32 tile -> output row, nondecreasing (0..n_rows-1).
-      n_rows: number of output rows (total blocks).
-      qp: (32, m) int32 query profile; m % 8 == 0, m <= max_query_pad().
-      precision: 'f32' | 'int32' — accepted for the JAX package's contract;
-        both compute exact int32.
-      ceiling: saturating tier — lanes whose exact score reaches it report
-        exactly `ceiling`, the others their exact score.
-      row_start: optional cached row_starts(outrow, n_rows).
-
-    Returns: (n_rows, V) int32 exact local-alignment scores.
-    """
+def check_tiles(tiles, outrow, qp, gap_open: int, gap_extend: int,
+                row_start=None) -> None:
+    """What kernel 1 takes in either form: the stream checks, the gaps, a
+    profile of at most max_query_pad() rows, a CPU or CUDA device."""
     check_gaps(gap_open, gap_extend)
-    check_precision(precision)
     check_stream(tiles, outrow, qp, row_start)
     if qp.shape[1] > max_query_pad():
         raise ValueError(f"profile length {qp.shape[1]} exceeds "
                          f"max_query_pad()={max_query_pad()}; use "
                          "longquery.score_tiles_long")
+    if tiles.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tiles.device}")
+
+
+def _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend, ceiling,
+                 row_start):
     if tiles.device.type == "cpu":
         return score_tiles_ref(tiles, outrow, n_rows, qp, gap_open,
                                gap_extend, ceiling, row_start)
-    if tiles.device.type != "cuda":
-        raise ValueError(f"unsupported device {tiles.device}")
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
     T, jt, V = tiles.shape
@@ -359,8 +432,104 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
     return out
 
 
-score_tiles.launches = 0   # sw_ragged_kernel launches (never the plain path)
-score_tiles.kernel = "sw_ragged_kernel"   # its CUDA kernel's name
+def _tiles_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend,
+                 row_start):
+    """Kernel 1 in its pair form, with no second pass, on checked inputs
+    that pair_form_fits accepts: one launch of sw_ragged_kernel<false,
+    true> on a CUDA tensor, score_tiles_pairs_ref on a CPU tensor."""
+    if tiles.device.type == "cpu":
+        return score_tiles_pairs_ref(tiles, outrow, n_rows, qp, gap_open,
+                                     gap_extend, row_start)
+    if row_start is None:
+        row_start = row_starts(outrow, n_rows)
+    T, jt, V = tiles.shape
+    m = qp.shape[1]
+    with torch.cuda.device(tiles.device):
+        out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
+        carry = strip_carry(m, tiles.shape, tiles.device, pairs=True)
+        err = kernels().sw_ragged_pairs_launch(
+            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+            qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
+            _ptr(carry), out.data_ptr(),
+            torch.cuda.current_stream(tiles.device).cuda_stream)
+    raise_on(err, "sw_ragged_kernel")
+    score_tiles.pair_launches += 1
+    return out
+
+
+def score_tiles_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
+                      gap_extend: int, ceiling: int | None = None,
+                      row_start=None) -> torch.Tensor:
+    """Kernel 1 in its int32 form whatever the input: one launch of
+    sw_ragged_kernel<CEIL> on a CUDA tensor, score_tiles_ref on a CPU
+    tensor. The ladder's saturating tiers, the inputs outside the pair
+    form and the pair form's second pass; arguments as score_tiles."""
+    check_tiles(tiles, outrow, qp, gap_open, gap_extend, row_start)
+    return _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend,
+                        ceiling, row_start)
+
+
+def score_tiles_pairs_ref(tiles, outrow, n_rows: int, qp, gap_open: int,
+                          gap_extend: int, row_start=None) -> torch.Tensor:
+    """Plain PyTorch version of one pair-form launch of kernel 1, to the
+    kernel's contract: a lane whose H stays below T = pair_limit(max(qp))
+    scores exactly; any other scores T (the kernel: T or more)."""
+    return score_tiles_ref(tiles, outrow, n_rows, qp, gap_open, gap_extend,
+                           row_start=row_start).clamp_max(
+                               pair_limit(int(qp.max())))
+
+
+def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
+                gap_extend: int, precision: str = "f32",
+                ceiling: int | None = None,
+                row_start=None, bounds=None) -> torch.Tensor:
+    """Score an entire ragged tile stream (all blocks, any lengths) in ONE
+    kernel launch: in the pair form where ceiling is None and
+    pair_form_fits allows it, then, unless the profile's top stays below
+    pair_limit(hi), the int32 form over the blocks with a lane at or above
+    it (rescore_flagged); else in the int32 form.
+
+    Args:
+      tiles: (T, jt, V) int8 packed db codes, block-major.
+      outrow: (T,) int32 tile -> output row, nondecreasing (0..n_rows-1).
+      n_rows: number of output rows (total blocks).
+      qp: (32, m) int32 query profile; m % 8 == 0, m <= max_query_pad().
+      precision: 'f32' | 'int32' — accepted for the JAX package's contract;
+        both compute exact int32.
+      ceiling: saturating tier — lanes whose exact score reaches it report
+        exactly `ceiling`, the others their exact score.
+      row_start: optional cached row_starts(outrow, n_rows).
+      bounds: optional profile_bounds(qp); the search paths pass it
+        (engine.score_lanes requires it). Without it the bounds are read
+        from qp, on a card a wait for the device before the launch: for
+        direct callers only.
+
+    Returns: (n_rows, V) int32 exact local-alignment scores.
+    """
+    check_precision(precision)
+    check_tiles(tiles, outrow, qp, gap_open, gap_extend, row_start)
+    if row_start is None:
+        row_start = row_starts(outrow, n_rows)
+    if ceiling is None:
+        lo, hi, top = profile_bounds(qp) if bounds is None else bounds
+        if pair_form_fits(tiles.shape[2], gap_open, gap_extend, lo, hi):
+            best = _tiles_pairs(tiles, outrow, n_rows, qp, gap_open,
+                                gap_extend, row_start)
+            if top >= pair_limit(hi):      # a lane may have reached it
+                score_tiles.rescored_blocks += rescore_flagged(
+                    best, pair_limit(hi), tiles, row_start,
+                    lambda t, o, n, rs: _tiles_int32(
+                        t, o, n, qp, gap_open, gap_extend, None, rs))
+            return best
+    return _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend,
+                        ceiling, row_start)
+
+
+score_tiles.launches = 0   # sw_ragged_kernel<CEIL> launches (the int32
+# form; never the plain path)
+score_tiles.pair_launches = 0   # sw_ragged_kernel<false, true> launches
+score_tiles.rescored_blocks = 0   # DB blocks scored again in int32
+score_tiles.kernel = "sw_ragged_kernel"   # its CUDA kernel's name, both forms
 
 
 def check_segments(seg_of_group, qp, n_seg_cap: int) -> None:

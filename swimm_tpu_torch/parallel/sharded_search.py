@@ -64,8 +64,9 @@ class Shard:
 def _local_score_topk(shard: Shard, qps: list, mode: str, config, kk: int,
                       with_hist: bool = False):
     """The per-shard body shared by every step: score each local query over
-    the shard (qps: (32, m) int32 profiles on its device, None for a pad
-    query of the query axis, which is not launched), mask pad lanes to -1,
+    the shard (qps: ((32, m) int32 profile on its device, its
+    scorer.profile_bounds) per query, None for a pad query of the query
+    axis, which is not launched), mask pad lanes to -1,
     take the top-kk in (score desc, sorted index asc) order as global
     sorted indices, and with with_hist each query's (N_LEN_BINS,
     SCORE_CAP + 1) int64 score histogram over the shard's valid lanes.
@@ -80,12 +81,13 @@ def _local_score_topk(shard: Shard, qps: list, mode: str, config, kk: int,
     hists = (torch.zeros((len(qps), stats.N_LEN_BINS, stats.SCORE_CAP + 1),
                          dtype=torch.int64, device=dev) if with_hist else None)
     n = min(kk, shard.mask.numel())
-    for row, qp in enumerate(qps):
-        if qp is None or n == 0:
+    for row, cell in enumerate(qps):
+        if cell is None or n == 0:
             continue
+        qp, bounds = cell
         scores = engine.score_lanes(
             (shard.tiles, shard.outrow, shard.n_rows, shard.row_start), qp,
-            mode, config)
+            mode, config, bounds)
         vals[row, :n], idx[row, :n] = engine.device_top_k(
             scores, shard.mask, shard.lane2sorted, n)
         if with_hist:
@@ -103,8 +105,9 @@ def _column_rows(mesh, q: int, n_pad: int) -> range:
 def sharded_tiles_local_topk(tile_shards, profiles, *, mesh, config, mode,
                              k=TOPK_PER_SHARD, with_hist=False):
     """Stage 1 of the SPLIT sharded step: every local cell scores its shard
-    and takes its top-kk, with no communication. profiles: {device: [(32,
-    m) tensor or None per padded query]} (_cell_profiles). Returns {(d, q):
+    and takes its top-kk, with no communication. profiles: {device:
+    [((32, m) tensor, its bounds) or None per padded query]}
+    (_cell_profiles). Returns {(d, q):
     (vals, idx[, hists])}, each on its cell's device. Pair with
     merge_candidates (stage 2) to time the merge apart."""
     shards, kk = tile_shards["shards"], min(k, tile_shards["R_loc"]
@@ -328,10 +331,14 @@ def pad_queries(qps: np.ndarray, mesh) -> np.ndarray:
 
 
 def _cell_profiles(qps: np.ndarray, n_real: int, mesh) -> dict:
-    """{device: [(32, m) int32 tensor per real query, None per pad]} for
-    every device of this process's cells: one upload per device."""
-    return {str(dev): [torch.from_numpy(qps[r]).to(dev) if r < n_real
-                       else None for r in range(len(qps))]
+    """{device: [((32, m) int32 tensor, its scorer.profile_bounds) per real
+    query, None per pad]} for every device of this process's cells: one
+    upload per device; the bounds are taken once a query, on the host."""
+    from swimm_tpu_torch.ops import scorer
+    host = [torch.from_numpy(qps[r]) for r in range(n_real)]
+    bounds = [scorer.profile_bounds(qp) for qp in host]
+    return {str(dev): [(qp.to(dev), b) for qp, b in zip(host, bounds)]
+            + [None] * (len(qps) - n_real)
             for dev in {mesh.devices[c] for c in mesh.local_cells()}}
 
 

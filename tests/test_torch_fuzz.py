@@ -159,7 +159,8 @@ def test_run_round_routes_equal_jax(case):
     res = fuzz.run_round(d, "cpu", np.random.default_rng([0, 1]))
     assert res["mismatch"] is None
     routes = res["routes"]
-    assert list(routes) == (["k5", "k2", "k2_planted", "k2_int32", "k3"]
+    assert list(routes) == (["k5", "k2", "k2_planted", "k2_int32",
+                             "k1_planted", "k3"]
                             if d.long else ["k4", "k1", "k3", "ladder"])
     mat = j_get_matrix(d.matrix)
     B = d.codes.shape[0]

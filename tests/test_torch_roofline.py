@@ -307,10 +307,11 @@ def _strip_sass(name, rows, extra):
 
 def test_walk_sass_per_cell_reads_the_innermost_strip_loop(monkeypatch):
     text = "\n".join([
-        _strip_sass("_Z16sw_ragged_kernelILb0EEvPKa", 32,
+        _strip_sass("_Z16sw_ragged_kernelILb0ELb0EEvPKa", 32,
                     ["ISETP.NE.AND P0, PT, R5, R6, PT", "IADD3 R3, R3, R7, RZ",
                      "VIADD R8, R8, 0x1"]),
-        _strip_sass("_Z16sw_ragged_kernelILb1EEvPKa", 16, ["VIADD R8, R8, 1"]),
+        _strip_sass("_Z16sw_ragged_kernelILb1ELb0EEvPKa", 16,
+                    ["VIADD R8, R8, 1"]),
     ])
     monkeypatch.setattr(rl, "_library_sass", lambda lib: parse_sass(text))
     got = rl.walk_sass_per_cell()
@@ -318,7 +319,7 @@ def test_walk_sass_per_cell_reads_the_innermost_strip_loop(monkeypatch):
                    "LDS": 1.0, "VIADD": 1 / 32, "VIADDMNMX": 4.0}
     assert rl.walk_load(got) == {"pipe": 4 + 2 / 32, "total": 5 + 4 / 32}
     with pytest.raises(RuntimeError, match="no 32-row strip loop"):
-        rl.walk_sass_per_cell(function="sw_ragged_kernelILb1E")
+        rl.walk_sass_per_cell(function="sw_ragged_kernelILb1ELb0E")
     with pytest.raises(RuntimeError, match="no kernel"):
         rl.walk_sass_per_cell(function="sw_chunk_kernel")
 

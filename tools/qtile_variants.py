@@ -7,32 +7,42 @@ shares its worker count: the long query's second tile over the stream, in
 its int32 form and, where the variant has it, its pair form), and kernels
 1, 3 and 4 of the variants in WHOLE beside them (query 0 for
 sw_ragged_kernel and sw_chunk_kernel, the widest pack of the 20 queries for
-sw_ragged_packed_kernel).
+sw_ragged_packed_kernel); kernel 1 also on the last of the stream's
+8,192-tile windows (its longest blocks, as the streamed search walks them:
+k1_last), and kernel 1's pair form (k1p, k1p_last) in every variant that
+has it.
 
     python3 tools/qtile_variants.py [--parent DIR] [--out DIR]
 
 Each variant is a copy of swimm_tpu_torch/csrc with text substitutions
 (VARIANTS below; the script stops if a substitution no longer applies):
 
-  shipped   the sources as they are (four workers in the carry form and
-            in the pair form, the pair form's position loop unrolled by 2)
-  pair_S2   the pair form with two workers (QTILE_PAIR_WORKERS = 2)
-  pair_u1   the pair form's position loop not unrolled
+  shipped     the sources as they are (four workers in the carry form
+              and in both pair forms, the pair form's position loop
+              unrolled by 2)
+  whole_S2    kernel 1's pair form with two workers (WHOLE_PAIR_WORKERS =
+              2)
+  whole_fast  kernel 1's pair form walking its full strips that have a
+              row above and below on kernel 2's step (no test for a
+              missing row in the position loop), its edge strips on its own
 
 --parent DIR adds the csrc directory of another commit as variant "parent",
 e.g. from `git archive <commit> swimm_tpu_torch/csrc | tar -x -C
 build/parent` (then DIR is build/parent/swimm_tpu_torch/csrc); a library
-that lacks a newer launcher (the pair form's) is timed without it. Every
+that lacks a newer launcher (a pair form's) is timed without it. Every
 variant's libraries are built side by side with the package's nvcc flags.
 Every variant's kernel 5 is checked against its plain version on small
 cases (chunks of 32 positions beside long ones, random carries in with
 planted F), and at full size against the first variant (kernels 5 and 2,
 scores and both carries; the pair form against the first variant's int32
 form, carries unpacked; kernels 1, 3 and 4 too for the variants in
-WHOLE). Prints the card's
+WHOLE; kernel 1's pair form against the first variant's int32 form).
+Prints the card's
 name and power limit, each kernel's registers and spills, the 8-bit loads
-and PRMTs of kernel 5's SASS, the pair loop's SASS a cell in every variant
-and whether every kernel but the pair form compiles to the parent's SASS,
+and PRMTs of kernel 5's SASS, both pair loops' SASS a cell in every variant
+and whether every kernel of the parent compiles to the same SASS in
+shipped (a kernel that gained a template parameter defaulting to false,
+as sw_ragged_kernel<CEIL> did, matched under it),
 each timing, and the 5,000-aa query's five
 tiles of kernel 5 end to end; writes the timings as JSON and the SASS of
 each library to --out (default build/qtile_variants). Exits 1 without a
@@ -63,13 +73,18 @@ SOURCES = ("sw_ragged.cu", "sw_chunk.cu", "sw_walk.cuh", "sw_walk_hg.cuh")
 _HG = "sw_walk_hg.cuh"
 VARIANTS = {  # name -> [(file, old, new)]
     "shipped": [],
-    "pair_S2": [(_HG, "constexpr int QTILE_PAIR_WORKERS = 4;",
-                 "constexpr int QTILE_PAIR_WORKERS = 2;")],
-    "pair_u1": [(_HG, "#pragma unroll 2\n  for (int j = 0; j < n; ++j) {",
-                 "#pragma unroll 1\n  for (int j = 0; j < n; ++j) {")],
+    "whole_S2": [(_HG, "constexpr int WHOLE_PAIR_WORKERS = 4;",
+                  "constexpr int WHOLE_PAIR_WORKERS = 2;")],
+    "whole_fast": [(_HG, """      if (rows == STRIP) {
+        hg_step_pairs<STRIP, WHOLE>(""", """      if (rows == STRIP && WHOLE && top.h && bot.h) {
+        hg_step_pairs<STRIP, false>(hg, e, diag_top, gm, cw + off, n, W,
+                                    prof, top, bot, goe2, ngoe2, nge2);
+      } else if (rows == STRIP) {
+        hg_step_pairs<STRIP, WHOLE>(""")],
 }
 WHOLE = ("parent", "shipped")   # kernels 1, 3, 4, 5 and 2 (int32) timed
-# too; every variant with the pair form times kernel 2's pair form
+# too; a variant with a pair form times it (pair_*: kernel 2's, whole_*:
+# kernel 1's, shipped both)
 
 
 def note(msg: str) -> None:
@@ -99,16 +114,25 @@ def make_variants(work: Path, parent: Path | None) -> dict:
     return dirs
 
 
+def kernel_key(fn: str):
+    """(kernel, its template bools as digits, '' for none) of a mangled
+    kernel name, or None: sw_ragged_kernelILb0ELb1E -> ('sw_ragged_kernel',
+    '01')."""
+    m = re.search(r"(sw_[a-z_]+?kernel)(?:I((?:Lb[01]E)+)E)?", fn)
+    return None if m is None else (m.group(1), "".join(
+        re.findall(r"Lb([01])E", m.group(2) or "")))
+
+
 def kernel_resources(log: str) -> dict:
     """ptxas -v output -> {kernel: (registers, spill stores, spill loads)}
-    (a kernel named by the part of its mangled name after 'sw_')."""
+    (a kernel named by the part of its mangled name after 'sw_', with its
+    template bools: sw_ragged_kernel<01>)."""
     res, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(sw_[a-z_]+kernel)(I[^E]*E)?", m.group(1))
-            name = (k.group(1) + ("<true>" if k.group(2) and "Lb1" in
-                                  k.group(2) else "")) if k else m.group(1)
+            k = kernel_key(m.group(1))
+            name = (k[0] + (f"<{k[1]}>" if k[1] else "")) if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -185,13 +209,6 @@ def bind(path: Path, signatures: dict):
     return lib
 
 
-def kernel_key(fn: str):
-    """(kernel, template bool) of a mangled kernel name; a kernel without a
-    template counts as <0> (kernel 2's int32 form was not a template)."""
-    m = re.search(r"(sw_[a-z_]+?kernel)(ILb([01])E)?", fn)
-    return None if m is None else (m.group(1), m.group(3) or "0")
-
-
 def sass_bodies(path: Path) -> dict:
     """{function name: its instructions (opcode and operands)} of a saved
     SASS listing."""
@@ -211,7 +228,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from swimm_tpu_torch.db import build_db
-    from swimm_tpu_torch.models import engine, qpack
+    from swimm_tpu_torch.models import engine, qpack, stream
     from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.ops import longquery, scorer
     from swimm_tpu_torch.utils.synth import (random_codes, synth_fasta_fast,
@@ -302,17 +319,36 @@ def main() -> int:
     qp3, seg3 = (torch.from_numpy(wide.qp).cuda(),
                  torch.from_numpy(wide.seg_of_group).cuda())
     carry1 = scorer.strip_carry(m1, tiles.shape, "cuda")
+    carry1p = scorer.strip_carry(m1, tiles.shape, "cuda", pairs=True)
+    # the last of the stream's 8,192-tile windows, as the streamed search
+    # cuts it (models/stream.plan_windows): its longest blocks
+    layout = stream.stream_layout(packed)
+    g0, g1 = stream.plan_windows(layout, 8192)[0][-1]
+    t0, t1 = int(layout["cum"][g0]), int(layout["cum"][g1])
+    last = (tiles[t0:t1], torch.from_numpy(layout["cum"][g0:g1 + 1]
+                                           - t0).cuda(), g1 - g0)
+    note(f"the last window: blocks {g0}..{g1 - 1}, tiles {t0}..{t1 - 1}")
     carry3 = scorer.strip_carry(wide.M, tiles.shape, "cuda")
     carry4 = scorer.strip_carry(m1, (table.numel,), "cuda")
     out4 = torch.empty((table.n_blocks, V), dtype=torch.int32, device="cuda")
     desc4 = table.bind(table.carry_views(carry4), None, table.out_views(out4))
 
-    def k1(lib):
-        out = torch.empty((n_rows, V), dtype=torch.int32, device="cuda")
-        if lib.sw_ragged_launch(tiles.data_ptr(), row_start.data_ptr(),
-                                n_rows, V, jt, qp1.data_ptr(), m1, 12, 2, 0,
-                                0, carry1.data_ptr(), out.data_ptr(), st()):
+    def k1(lib, t=tiles, rs=row_start, n=n_rows):
+        out = torch.empty((n, V), dtype=torch.int32, device="cuda")
+        if lib.sw_ragged_launch(t.data_ptr(), rs.data_ptr(), n, V, jt,
+                                qp1.data_ptr(), m1, 12, 2, 0, 0,
+                                carry1.data_ptr(), out.data_ptr(), st()):
             raise RuntimeError("sw_ragged_kernel launch failed")
+        return out
+
+    def k1p(lib, t=tiles, rs=row_start, n=n_rows):
+        # the pair scratch of a stream of T' tiles is 2 T' jt V / 2 words
+        car = carry1p.view(-1)[:t.numel()]
+        out = torch.empty((n, V), dtype=torch.int32, device="cuda")
+        if lib.sw_ragged_pairs_launch(t.data_ptr(), rs.data_ptr(), n, V, jt,
+                                      qp1.data_ptr(), m1, 12, 2,
+                                      car.data_ptr(), out.data_ptr(), st()):
+            raise RuntimeError("sw_ragged_kernel<false, true> launch failed")
         return out
 
     def k2(lib, h, f):
@@ -373,9 +409,13 @@ def main() -> int:
     h, f = h1.clone(), f1.clone()
     ref2 = (k2(rag[first], h, f), h, f)
     ref = (k1(rag[first]), k3(rag[first]), k4(chk[first]))
+    ref1_last = k1(rag[first], *last)
     # the pair form's carries after the first tile (int32 carries packed)
     pairs = [n for n in dirs
-             if hasattr(rag[n], "sw_ragged_qtile_pairs_launch")]
+             if hasattr(rag[n], "sw_ragged_qtile_pairs_launch")
+             and not n.startswith("whole_")]
+    pairs1 = [n for n in dirs if hasattr(rag[n], "sw_ragged_pairs_launch")
+              and not n.startswith("pair_")]
     h1p, f1p = longquery.to_pairs(h1), longquery.to_pairs(f1)
     for name in dirs:
         hs, fs = clone(h2), clone(f2)
@@ -396,9 +436,13 @@ def main() -> int:
                           cs.max_err(longquery.from_pairs(hp), ref2[1]),
                           cs.max_err(longquery.from_pairs(fp), ref2[2])))
             del hp, fp
+        if name in pairs1:
+            e.append(max(cs.max_err(k1p(rag[name]), ref[0]),
+                         cs.max_err(k1p(rag[name], *last), ref1_last)))
         errs[name] = max(errs[name], *e)
         note(f"{name} vs {first}, full size: kernels 5, 2 (1, 3, 4) (2 "
-             f"in pairs) max_abs_err {e}")
+             f"in pairs) (1 in pairs, whole stream and last window) "
+             f"max_abs_err {e}")
         del hs, fs, got5, h, f, got2
     if any(errs.values()):
         raise SystemExit(f"a variant disagrees: {errs}")
@@ -409,15 +453,18 @@ def main() -> int:
             for n in dirs for src in ("sw_ragged", "sw_chunk")}
     from swimm_tpu_torch.benchmarks import parse_sass
     from swimm_tpu_torch.benchmarks import roofline as rl
-    for name in pairs:
-        per_cell = rl.walk_sass_per_cell(
-            function="sw_ragged_qtile_kernelILb1E", lanes=2,
-            sass=parse_sass((args.out / f"sass_{name}_sw_ragged.txt")
-                            .read_text()))
-        resources[name]["k2p_sass_per_cell"] = per_cell
-        resources[name]["k2p_load"] = rl.walk_load(per_cell)
-        note(f"{name}: kernel 2 pair loop, SASS a cell "
-             f"{rl.walk_load(per_cell)} {per_cell}")
+    for key, names, function in (
+            ("k2p", pairs, "sw_ragged_qtile_kernelILb1E"),
+            ("k1p", pairs1, "sw_ragged_kernelILb0ELb1E")):
+        for name in names:
+            per_cell = rl.walk_sass_per_cell(
+                function=function, lanes=2,
+                sass=parse_sass((args.out / f"sass_{name}_sw_ragged.txt")
+                                .read_text()))
+            resources[name][f"{key}_sass_per_cell"] = per_cell
+            resources[name][f"{key}_load"] = rl.walk_load(per_cell)
+            note(f"{name}: {function} pair loop, SASS a cell "
+                 f"{rl.walk_load(per_cell)} {per_cell}")
     if "parent" in dirs:
         for src in ("sw_ragged", "sw_chunk"):
             a = {kernel_key(fn): body
@@ -425,11 +472,18 @@ def main() -> int:
             b = {kernel_key(fn): body
                  for fn, body in sass[("shipped", src)].items()}
             for key in sorted(k for k in a if k is not None):
-                same = key in b and a[key] == b[key]
+                # a template parameter added behind the others defaults to
+                # false: <0> in the parent is <00> in shipped
+                body = b.get(key, b.get((key[0], key[1] + "0")))
+                same = body is not None and a[key] == body
                 resources["shipped"][f"same_sass_{key[0]}<{key[1]}>"] = same
                 note(f"SASS {src} {key[0]}<{key[1]}>: parent and shipped "
                      f"{'the same' if same else 'DIFFER'} ({len(a[key])} / "
-                     f"{len(b.get(key, ()))} instructions)")
+                     f"{len(body or ())} instructions)")
+            for key in sorted(set(b) - set(a) - {
+                    (k[0], k[1] + "0") for k in a if k is not None}):
+                note(f"SASS {src} {key[0]}<{key[1]}>: new in shipped "
+                     f"({len(b[key])} instructions)")
     h5, f5 = clone(h2), clone(f2)
     hk, fk = h1.clone(), f1.clone()
     hkp, fkp = h1p.clone(), f1p.clone()
@@ -438,13 +492,18 @@ def main() -> int:
     for rnd in range(6):
         for name in (order if rnd % 2 == 0 else order[::-1]):
             row = {}
-            if name in WHOLE or not name.startswith("pair_"):
+            if name in WHOLE or not name.startswith(("pair_", "whole_")):
                 row["k5"] = cs.cuda_ms(lambda: k5(chk[name], table, qts[2],
                                                   10, 2, h5, f5), 3)
                 row["k2"] = cs.cuda_ms(lambda: k2(rag[name], hk, fk), 3)
             if name in pairs:
                 row["k2p"] = cs.cuda_ms(lambda: k2p(rag[name], hkp, fkp), 3)
+            if name in pairs1:
+                row["k1p"] = cs.cuda_ms(lambda: k1p(rag[name]), 3)
+                row["k1p_last"] = cs.cuda_ms(lambda: k1p(rag[name], *last),
+                                             3)
             if name in WHOLE:
+                row["k1_last"] = cs.cuda_ms(lambda: k1(rag[name], *last), 3)
                 for key, fn, lib in (("k1", k1, rag[name]),
                                      ("k3", k3, rag[name]),
                                      ("k4", k4, chk[name])):
