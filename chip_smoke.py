@@ -1295,6 +1295,8 @@ def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
     from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
     from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.ops import ladder, longquery, scorer
+    from swimm_tpu_torch.ops.lanes import Profile
+    from swimm_tpu_torch.ops.lanes import score as score_lanes
     from swimm_tpu_torch.utils import stats
     out, phases = {}, {}
 
@@ -1327,9 +1329,8 @@ def later_paths(packed, dev_db, queries, results, long_q, long_res, met,
     width = stats.SCORE_CAP + 1
     _, bin_logl = stats.length_bins(packed.lengths)
     for q, r in zip(queries, e_res):
-        qp, bounds = engine.host_profile(q, config)
-        lanes = engine.score_lanes(dev_db, qp.cuda(), "tiles", config,
-                                   bounds)
+        lanes = score_lanes(dev_db[:4], Profile.build(q, config, "cuda"),
+                            config.gap_open, config.gap_extend)
         table = engine.score_hist(lanes, mask, lane_bins).cpu().numpy()
         host = np.bincount(
             bins * width + np.clip(lanes.cpu().numpy()[valid], 0,
@@ -1503,14 +1504,16 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     from swimm_tpu_torch.models.engine import (SearchConfig,
                                                score_db_streaming, search)
     from swimm_tpu_torch.ops import longquery
+    from swimm_tpu_torch.ops.lanes import Profile
+    from swimm_tpu_torch.ops.lanes import score as score_lanes
     out, phases = {}, {}
     spacked = load_db(db_dir)
     if not isinstance(spacked.chunks[0].codes, np.memmap):
         raise AssertionError("load_db did not memmap the chunk files")
     layout = stream.stream_layout(spacked)
     cum, V, jt = layout["cum"], layout["V"], layout["jt"]
-    qp0, bounds0 = engine.host_profile(queries[0], config)
-    qp0 = qp0.cuda()
+    prof0 = Profile.build(queries[0], config, "cuda")
+    qp0 = prof0.qp
 
     def plan(wt):
         spans, r_cap = stream.plan_windows(layout, wt)
@@ -1558,8 +1561,9 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     sconfig = SearchConfig(top_k=16, db_stream=True)
     prof = device_breakdown(lambda: search(spacked, queries, sconfig))
     win_ms = window_kernel_ms(dev_db, spans, cum, qp0)
-    whole_ms = cuda_ms(lambda: engine.score_lanes(dev_db, qp0, "tiles",
-                                                  config, bounds0))
+    whole_ms = cuda_ms(lambda: score_lanes(dev_db[:4], prof0,
+                                           config.gap_open,
+                                           config.gap_extend))
     out["batch20_8192"] = {
         "windows": n_win, "width_tiles": wt, "r_cap": r_cap,
         "runs": runs, "profiled": prof, "h2d_bytes": h2d_bytes(spans),
@@ -2505,6 +2509,7 @@ def main(argv=None) -> int:
     from swimm_tpu_torch.models.engine import SearchConfig, score_db, search
     from swimm_tpu_torch.models.profile import build_query_profile
     from swimm_tpu_torch.ops import _build, longquery, scorer
+    from swimm_tpu_torch.ops.lanes import select_mode
     from swimm_tpu_torch.utils.synth import (random_codes, synth_fasta_fast,
                                              synth_queries)
 
@@ -2650,7 +2655,7 @@ def main(argv=None) -> int:
                          f"{queries[0].title.split()[0]})", long_codes)
     m_long = -(-LONG_LEN // config.m_multiple) * config.m_multiple
     n_qt = -(-m_long // longquery.LONG_TILE_M)
-    assert engine.select_mode(m_long) == "tiles_long"
+    assert select_mode(m_long) == "tiles_long"
     search(packed, [long_q], config)                     # warm-up
     longquery.score_tiles_long.rescored_blocks = 0
     (long_res, long_met), seen = counted(

@@ -46,11 +46,10 @@ from swimm_tpu_torch.db import PackedDb
 from swimm_tpu_torch.fasta import FastaRecord
 from swimm_tpu_torch.models import qpack
 from swimm_tpu_torch.models.profile import build_query_profile
-from swimm_tpu_torch.models.stream import (check_streamable, dispatched_rows,
+from swimm_tpu_torch.models.stream import (check_streamable,
                                            search_streaming_batch,
-                                           select_mode, stream_layout,
-                                           stream_windows)
-from swimm_tpu_torch.ops import longquery, scorer
+                                           stream_layout, stream_windows)
+from swimm_tpu_torch.ops import lanes, longquery, scorer
 from swimm_tpu_torch.utils import stats
 from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics, span
 
@@ -114,14 +113,6 @@ def check_supported(config: SearchConfig) -> None:
     if config.precision not in ("adaptive", "ladder", "f32", "int32"):
         raise ValueError(f"unknown precision {config.precision!r}")
     scorer.check_gaps(config.gap_open, config.gap_extend)
-
-
-def kernel_precision(config: SearchConfig) -> str:
-    """The scorers' precision argument for this config ('adaptive', and
-    the ladder's exact passes, run the exact f32 pass, as in the JAX
-    package)."""
-    return ("f32" if config.precision in ("adaptive", "ladder")
-            else config.precision)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -328,34 +319,6 @@ def scatter_lane_scores(packed: PackedDb, flat: np.ndarray) -> np.ndarray:
     return out
 
 
-def lane_scorer(mode: str):
-    """The wrapper that scores one profile's lanes in ``mode``; its
-    ``.kernel`` names the CUDA kernel it launches."""
-    return (scorer.score_tiles if mode == "tiles"
-            else longquery.score_tiles_long)
-
-
-def score_lanes(dev_db, qp: torch.Tensor, mode: str,
-                config: SearchConfig, bounds: tuple) -> torch.Tensor:
-    """(n_rows * V,) int32 scores of every lane for one (32, m) profile.
-    bounds: scorer.profile_bounds of the profile, taken on the host where
-    it was built (host_profile), so that no launch waits for the device."""
-    tiles, outrow, n_rows, row_start = dev_db[:4]
-    prec = kernel_precision(config)
-    fn = lane_scorer(mode)
-    return fn(tiles, outrow, n_rows, qp, config.gap_open, config.gap_extend,
-              precision=prec, row_start=row_start,
-              bounds=bounds).reshape(-1)
-
-
-def host_profile(query, config: SearchConfig):
-    """One query's (32, m) int32 profile on the host and its
-    scorer.profile_bounds, for score_lanes."""
-    qp = torch.from_numpy(build_query_profile(query.codes, config.matrix,
-                                              config.m_multiple))
-    return qp, scorer.profile_bounds(qp)
-
-
 def device_top_k(scores: torch.Tensor, mask: torch.Tensor,
                  lane2sorted: torch.Tensor, k: int):
     """Top-k of lane scores on the device, pad lanes masked to -1, in
@@ -410,14 +373,13 @@ def _search_packed(packed: PackedDb, queries, config: SearchConfig, dev_db):
                 f"GB of device memory but {free / 1e9:.2f} GB is free; "
                 "search without query_pack")
     k = min(config.top_k, mask.numel())
-    prec = kernel_precision(config)
     packs = qpack.build_query_packs(queries, config.matrix)
     pending = []
     for p in packs:
         planes = scorer.score_tiles_packed(
             tiles, outrow, n_rows, torch.from_numpy(p.qp).to(dev),
             torch.from_numpy(p.seg_of_group).to(dev), config.gap_open,
-            config.gap_extend, n_seg_cap=qpack.N_SEG_CAP, precision=prec,
+            config.gap_extend, n_seg_cap=qpack.N_SEG_CAP,
             row_start=row_start)
         pending.append((p, device_top_k(planes.transpose(0, 1), mask,
                                         lane2sorted, k)))
@@ -460,18 +422,15 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
     out = [None] * len(queries)
     order, vs, sis, hists = [], [], [], []
     padded_rows = 0
-    for m_pad, positions in group_by_m_pad(
-            queries, config.m_multiple).items():
-        mode = select_mode(m_pad)
-        padded_rows += dispatched_rows(mode, m_pad) * len(positions)
-        kernel = lane_scorer(mode).kernel
+    for positions in group_by_m_pad(queries, config.m_multiple).values():
         for p in positions:
             with span("engine.profile"):
-                qp, bounds = host_profile(queries[p], config)
-                qp = qp.to(dev)
-            with span("engine.launch", kernel=kernel,
-                      cells=queries[p].length * int(packed.total_residues)):
-                scores = score_lanes(dev_db, qp, mode, config, bounds)
+                prof = lanes.Profile.build(queries[p], config, dev)
+            padded_rows += prof.rows
+            with span("engine.launch", kernel=prof.kernel,
+                      cells=prof.length * int(packed.total_residues)):
+                scores = lanes.score(dev_db[:4], prof, config.gap_open,
+                                     config.gap_extend)
             with span("engine.top_k"):
                 v, si = device_top_k(scores, mask, lane2sorted, k)
             order.append(p)
@@ -538,13 +497,13 @@ def _search_ladder_batch(packed: PackedDb, queries, config: SearchConfig,
             for row, p in enumerate(positions):
                 out[p] = _hits_from(packed, *cand[row], config.top_k)
     for p in full_vector:
-        svec = score_db(packed, queries[p], config, dev)
+        prof = lanes.Profile.build(queries[p], config)
+        svec = _score_db(packed, prof, config, dev)
         out[p] = top_k_hits(packed, svec, config.top_k)
         if config.evalue:
             stats.attach_evalues(out[p], stats.fit_evalue_model(
                 svec, packed.lengths), packed.lengths)
-        m_pad = _m_pad(queries[p].length, mm)
-        padded_rows += dispatched_rows(select_mode(m_pad), m_pad)
+        padded_rows += prof.rows
     return out, padded_rows
 
 
@@ -554,37 +513,6 @@ def search_fused(packed: PackedDb, query: FastaRecord, config: SearchConfig,
     return search_fused_batch(packed, [query], config, device)[0][0]
 
 
-def _chunk_scorer(config: SearchConfig):
-    """chunks, their ChunkTable, qp (32, m) -> list of (B, V) scores, every
-    launch over all the chunks at once: the one-pass chunk kernel, one
-    launch, up to max_query_pad() rows; else the query-tiled one, one launch
-    per query tile. Either raises if the carries of all chunks (8 bytes per
-    code byte, allocated once per call) would not fit in the device memory
-    that is free or held unused by PyTorch's allocator."""
-    prec = kernel_precision(config)
-
-    def dispatch(chunks, table, qp):
-        dev = table.device
-        if dev.type == "cuda":
-            free = (torch.cuda.mem_get_info(dev)[0]
-                    + torch.cuda.memory_reserved(dev)
-                    - torch.cuda.memory_allocated(dev))
-            need = 8 * table.numel
-            if need > free:
-                raise RuntimeError(
-                    f"the query's carries need {need / 1e9:.2f} GB of "
-                    f"device memory but {free / 1e9:.2f} GB is free")
-        if qp.shape[1] <= scorer.max_query_pad():
-            return scorer.score_chunks(chunks, qp, config.gap_open,
-                                       config.gap_extend, precision=prec,
-                                       table=table)
-        return longquery.score_chunks_long(
-            chunks, qp, config.gap_open, config.gap_extend, precision=prec,
-            table=table)
-
-    return dispatch
-
-
 def score_db_streaming(packed: PackedDb, query: FastaRecord,
                        config: SearchConfig | None = None,
                        window_tiles: int | None = None,
@@ -592,11 +520,10 @@ def score_db_streaming(packed: PackedDb, query: FastaRecord,
                        device=None) -> np.ndarray:
     """score_db for a DB too large to live on the device: the windows of
     models/stream.stream_windows (read out of core, at most max_in_flight
-    on the device), each scored by one launch of kernel 1 (score_tiles) or,
-    past max_query_pad() padded rows, of kernel 2 per query tile
-    (score_tiles_long). Each window's scores are copied into one host
-    (n_rows, V) array without a wait; the device is synchronised once.
-    window_tiles / max_in_flight default to the config's.
+    on the device), each scored by lanes.score. Each window's scores are
+    copied into one host (n_rows, V) array without a wait; the device is
+    synchronised once. window_tiles / max_in_flight default to the
+    config's.
 
     Returns (n_seqs,) int32 scores in sorted-db order."""
     config = config or SearchConfig()
@@ -610,16 +537,14 @@ def score_db_streaming(packed: PackedDb, query: FastaRecord,
         raise ValueError("max_in_flight must be positive")
     check_supported(config)
     dev = resolve_device(device)
-    qp, bounds = host_profile(query, config)
-    qp = qp.to(dev)
-    mode = select_mode(qp.shape[1])
+    prof = lanes.Profile.build(query, config, dev)
     layout = stream_layout(packed)
     host = torch.zeros((layout["n_rows"], layout["V"]), dtype=torch.int32,
                        pin_memory=dev.type == "cuda")
     for tiles, outrow, row_start, g0, n_w in stream_windows(
             packed, window_tiles, max_in_flight, dev):
-        scores = score_lanes((tiles, outrow, n_w, row_start), qp, mode,
-                             config, bounds)
+        scores = lanes.score((tiles, outrow, n_w, row_start), prof,
+                             config.gap_open, config.gap_extend)
         host[g0:g0 + n_w].copy_(scores.view(n_w, -1), non_blocking=True)
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
@@ -636,23 +561,44 @@ def score_db(packed: PackedDb, query: FastaRecord,
     scores). For a DB that does not fit the device: score_db_streaming."""
     config = config or SearchConfig()
     check_supported(config)
-    qp = torch.from_numpy(build_query_profile(
-        query.codes, config.matrix, config.m_multiple))
-    if (config.precision == "ladder"
-            and qp.shape[1] <= scorer.max_query_pad()):
+    return _score_db(packed, lanes.Profile.build(query, config), config,
+                     device)
+
+
+def _score_db(packed: PackedDb, prof, config: SearchConfig,
+              device) -> np.ndarray:
+    """score_db of a lanes.Profile on the host: the ladder for kernel 1's
+    lengths under precision='ladder'; else one launch over all chunks of
+    the one-pass chunk kernel, or of the query-tiled one per query tile.
+    The latter raises if the carries of all chunks (8 bytes per code byte,
+    allocated once per call) would not fit in the device memory that is
+    free or held unused by PyTorch's allocator."""
+    if config.precision == "ladder" and prof.mode == "tiles":
         from swimm_tpu_torch.ops import ladder
         dev_db = device_tiles(packed, device)
         scores2d, _ = ladder.score_db_adaptive(
-            packed, qp.to(dev_db[0].device), query.length, config.gap_open,
+            packed, prof.qp, prof.length, config.gap_open,
             config.gap_extend, matrix=config.matrix, dev_db=dev_db)
         return scatter_lane_scores(packed, scores2d.reshape(-1))
     chunks, table = device_chunk_table(packed, device)
     out = np.zeros(packed.n_seqs, dtype=np.int32)
     if not chunks:
         return out
-    qp = qp.to(table.device)
-    flat = torch.cat([s.reshape(-1) for s in _chunk_scorer(config)(
-        chunks, table, qp)]).cpu().numpy()
+    dev = table.device
+    if dev.type == "cuda":
+        free = (torch.cuda.mem_get_info(dev)[0]
+                + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+        need = 8 * table.numel
+        if need > free:
+            raise RuntimeError(
+                f"the query's carries need {need / 1e9:.2f} GB of "
+                f"device memory but {free / 1e9:.2f} GB is free")
+    score = (scorer.score_chunks if prof.mode == "tiles"
+             else longquery.score_chunks_long)
+    flat = torch.cat([s.reshape(-1) for s in score(
+        chunks, prof.qp.to(dev), config.gap_open, config.gap_extend,
+        table=table)]).cpu().numpy()
     lane0 = 0
     for ch in packed.chunks:
         out[ch.base:ch.base + ch.n_seqs] = flat[lane0:lane0 + ch.n_seqs]

@@ -1,6 +1,5 @@
 """Window-major, out-of-core DB streaming (counterpart of
-swimm_tpu/models/stream.py), and the kernel-mode decision shared by every
-search path.
+swimm_tpu/models/stream.py).
 
 For a database larger than device memory (SearchConfig(db_stream=True)):
 
@@ -16,9 +15,10 @@ For a database larger than device memory (SearchConfig(db_stream=True)):
   after the last launch that read the device slot it overwrites, and a
   host slot is refilled only once its copy has completed: at most
   max_in_flight windows live on the device, with no host wait per window.
-- Each window is scored against EVERY query of the batch (one launch per
-  query: kernel 1, or kernel 2 per query tile past max_query_pad() rows)
-  before the next window, so the DB crosses the link once per batch.
+- Each window is scored against EVERY query of the batch (ops/lanes.score:
+  one launch per query of kernel 1, or of kernel 2 per query tile past
+  max_query_pad() rows) before the next window, so the DB crosses the link
+  once per batch.
 - Windows are launched at their fill (t1 - t0 tiles, n_w rows, row starts
   from the layout). The JAX module pads every window to one compiled
   width and sends the pad tiles to a trash row; the kernels here take a
@@ -55,24 +55,8 @@ import threading
 import numpy as np
 import torch
 
-from swimm_tpu_torch.ops.longquery import LONG_TILE_M
-from swimm_tpu_torch.ops.scorer import max_query_pad
+from swimm_tpu_torch.ops import lanes
 from swimm_tpu_torch.utils.metrics import span
-
-
-def select_mode(m_pad: int) -> str:
-    """Kernel mode for one padded-length group: 'tiles' (one pass over the
-    query) up to max_query_pad() rows, else 'tiles_long' (query tiles)."""
-    return "tiles" if m_pad <= max_query_pad() else "tiles_long"
-
-
-def dispatched_rows(mode: str, m_pad: int) -> int:
-    """Query rows the kernel actually dispatches for this mode — the
-    long-query path rounds m up to a LONG_TILE_M multiple; honest
-    padded-cell accounting counts what ran, not what was asked."""
-    if mode == "tiles_long":
-        return -(-m_pad // LONG_TILE_M) * LONG_TILE_M
-    return m_pad
 
 
 def stream_layout(packed, jt: int = 32):
@@ -101,20 +85,20 @@ def stream_layout(packed, jt: int = 32):
 
 
 def plan_windows(layout, window_tiles: int):
-    """Cut the stream into windows at block boundaries.
+    """Cut the stream into windows at block boundaries (the JAX module's
+    cuts, so both packages stream the same windows).
 
     Returns (spans [(g0, g1) block ranges], r_cap = max blocks per window).
-    Every window shares one compiled kernel shape (window_tiles tiles,
-    r_cap + 1 output rows — the +1 is the trash row for padding tiles).
+    Each window is launched at its fill (its own tiles and rows, no pad
+    tiles); window_tiles caps a window's tiles, and with r_cap sizes the
+    host and device slots.
 
     Spans are BALANCED, not greedy-filled: with n_win = ceil(T /
     window_tiles) windows either way, boundaries sit at the block edges
-    nearest w*T/n_win. Greedy filling concentrates all the padding in one
-    nearly-empty tail window — at Swiss-Prot scale that is ~13% of the
-    dispatched tiles, and every padded tile costs full kernel work (it
-    scores into the trash row). Balancing bounds the total padding by
-    n_win * (largest block) instead (~2%), at the same window count,
-    compiled shape, and HBM bound (window_tiles is still the cap).
+    nearest w*T/n_win. Greedy filling would leave one nearly-empty tail
+    window; balancing evens the windows' fills at the same window count
+    and memory bound (the JAX module, which pads every window to one
+    compiled width, balances to bound that padding).
     """
     cum, n_rows = layout["cum"], layout["n_rows"]
     if n_rows == 0:
@@ -462,17 +446,13 @@ def search_streaming_batch(packed, queries, config, device=None):
     spans, r_cap = plan_windows(layout, config.window_tiles)
     n_rows, V = layout["n_rows"], layout["V"]
     lane_positions = layout["T"] * layout["jt"] * V
-    order, launches, padded_rows = [], [], 0
-    for m_pad, positions in sorted(engine.group_by_m_pad(
+    order, profiles = [], []
+    for _, positions in sorted(engine.group_by_m_pad(
             queries, config.m_multiple).items()):
-        mode = select_mode(m_pad)
-        padded_rows += dispatched_rows(mode, m_pad) * len(positions)
-        kernel = engine.lane_scorer(mode).kernel
-        for p in positions:
-            order.append(p)
-            qp, bounds = engine.host_profile(queries[p], config)
-            launches.append((mode, kernel, queries[p].length, qp.to(dev),
-                             bounds))
+        order += positions
+        profiles += [lanes.Profile.build(queries[p], config, dev)
+                     for p in positions]
+    padded_rows = sum(prof.rows for prof in profiles)
     if not spans or not queries:
         return [[] for _ in queries], padded_rows, lane_positions
     merge = resolve_stream_scores(config, len(queries), n_rows, r_cap, V)
@@ -490,28 +470,27 @@ def search_streaming_batch(packed, queries, config, device=None):
                               device=dev) if config.evalue else None)
     for tiles, outrow, row_start, g0, n_w in stream_windows(
             packed, config.window_tiles, config.max_in_flight, dev):
-        lanes = slice(g0 * V, (g0 + n_w) * V)
+        window = slice(g0 * V, (g0 + n_w) * V)
         real = int(residues[g0:g0 + n_w].sum())
         vs, sis = [], []
         with span("stream.window", tiles=int(tiles.shape[0]), rows=n_w):
-            for row, (mode, kernel, length, qp, bounds) in enumerate(
-                    launches):
-                with span("engine.launch", kernel=kernel,
-                          cells=length * real):
-                    scores = engine.score_lanes(
-                        (tiles, outrow, n_w, row_start), qp, mode, config,
-                        bounds)
+            for row, prof in enumerate(profiles):
+                with span("engine.launch", kernel=prof.kernel,
+                          cells=prof.length * real):
+                    scores = lanes.score((tiles, outrow, n_w, row_start),
+                                         prof, config.gap_open,
+                                         config.gap_extend)
                 if merge == "buffer":
                     buf[row, g0:g0 + n_w] = scores.view(n_w, V)
                     continue
-                v, si = engine.device_top_k(scores, mask[lanes],
-                                            lane2sorted[lanes],
+                v, si = engine.device_top_k(scores, mask[window],
+                                            lane2sorted[window],
                                             min(k, n_w * V))
                 vs.append(v)
                 sis.append(si)
                 if tables is not None:
-                    tables[row] += engine.score_hist(scores, mask[lanes],
-                                                     bins[lanes])
+                    tables[row] += engine.score_hist(scores, mask[window],
+                                                     bins[window])
             if merge == "candidates":
                 cands.append((torch.stack(vs), torch.stack(sis)))
     out = [None] * len(queries)

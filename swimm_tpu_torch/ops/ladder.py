@@ -9,12 +9,15 @@ the returned stats (tier_ceilings, tier_blocks) are the JAX module's.
 Every tier is one kernel launch with a ceiling: ``scorer.score_tiles(...,
 ceiling=tier)`` (sw_ragged_kernel<CEIL>) over the resident tile stream, or
 ``scorer.score_chunk(..., ceiling=tier)`` (sw_chunk_kernel<CEIL>) over one
-chunk. An escalation gathers the flagged blocks from the resident stream
-ON THE DEVICE (index_select of their tiles, with a row map and
-scorer.row_starts for the sub-stream), each query its own blocks; the JAX
-module's host gather, re-upload and power-of-two padding only bounded its
-compiled shapes. Saturation flags are computed on the device; only flags
-and top-k candidates come to the host, one copy per tier.
+chunk. Each score_tiles launch takes its profile's scorer.profile_bounds,
+taken on the host before the profile's upload, so the exact tier's 16-bit
+guard does not wait for the device. An escalation gathers the flagged
+blocks from the resident stream ON THE DEVICE (index_select of their
+tiles, with a row map and scorer.row_starts for the sub-stream), each
+query its own blocks; the JAX module's host gather, re-upload and
+power-of-two padding only bounded its compiled shapes. Saturation flags
+are computed on the device; only flags and top-k candidates come to the
+host, one copy per tier.
 
 Tier ceilings are the reference's: 127 (int8-class), 32767 (int16-class),
 None (exact). Every tier computes in int32 here, as on the TPU: the tiers
@@ -77,6 +80,13 @@ def _tile_rows(packed) -> np.ndarray:
         np.bincount(outrow, minlength=n_rows))]).astype(np.int64)
 
 
+def _bounds(qps) -> list:
+    """scorer.profile_bounds of each profile of a (Q, 32, m) stack, taken
+    where the stack is (the host, for the search paths' numpy stacks)."""
+    qps = torch.as_tensor(qps)
+    return [scorer.profile_bounds(qps[q]) for q in range(qps.shape[0])]
+
+
 def _resident(packed, dev_db, device):
     return dev_db if dev_db is not None else engine.device_tiles(packed,
                                                                  device)
@@ -125,11 +135,11 @@ def topk_db_adaptive_serving(packed, groups, k: int, gap_open: int,
     lanes = torch.arange(n_rows * V, device=dev)
     mask2d = mask.view(n_rows, V)
 
-    def launch(t, o, nr, rs, qp, ceiling, lane_mask, kk_t):
+    def launch(t, o, nr, rs, qp, bounds, ceiling, lane_mask, kk_t):
         """One tier launch, reduced on the device to (flags, top-kk_t
         clamped scores, their lanes) in one int64 vector."""
         s = scorer.score_tiles(t, o, nr, qp, gap_open, gap_extend,
-                               ceiling=ceiling, row_start=rs)
+                               ceiling=ceiling, row_start=rs, bounds=bounds)
         v, li = engine.device_top_k(s.reshape(-1), lane_mask,
                                     lanes[:nr * V], kk_t)
         return torch.cat([_flags(s, ceiling).long(), v.long(), li])
@@ -146,12 +156,13 @@ def topk_db_adaptive_serving(packed, groups, k: int, gap_open: int,
         return out
 
     # ---- tier 1: one launch per query over the whole stream ----
+    qbounds = [_bounds(qps) for qps, _ in groups]
     qps_dev = [torch.as_tensor(qps).to(dev) for qps, _ in groups]
     parts, sizes = [], []
-    for qps in qps_dev:
+    for qps, bs in zip(qps_dev, qbounds):
         for q in range(qps.shape[0]):
             parts.append(launch(tiles, outrow, n_rows, row_start, qps[q],
-                                tiers[0], mask, kk))
+                                bs[q], tiers[0], mask, kk))
             sizes.append((n_rows, kk))
     first = iter(drain(parts, sizes))
     rounds, pend_all = [], []   # [group][query]: candidate rounds; pending
@@ -184,7 +195,7 @@ def topk_db_adaptive_serving(packed, groups, k: int, gap_open: int,
                 kk_t = min(k, len(pend) * V)
                 lane_mask = mask2d[torch.from_numpy(pend).to(dev)].reshape(-1)
                 parts.append(launch(sub, o, len(pend), rs, qps_dev[gi][q],
-                                    tier, lane_mask, kk_t))
+                                    qbounds[gi][q], tier, lane_mask, kk_t))
                 sizes.append((len(pend), kk_t))
             for (gi, q), (sflags, sv, sidx) in zip(entries,
                                                    drain(parts, sizes)):
@@ -260,6 +271,7 @@ def score_db_adaptive_batch(packed, qps, query_lens, gap_open: int,
     """
     tiles, outrow, n_rows, row_start = _resident(packed, dev_db, device)[:4]
     dev = tiles.device
+    qbounds = _bounds(qps)
     qps = torch.as_tensor(qps).to(dev)
     Q = qps.shape[0]
     maxdiag = _max_diag(matrix)
@@ -268,7 +280,8 @@ def score_db_adaptive_batch(packed, qps, query_lens, gap_open: int,
     tiers = _tiers(tiers, int(bounds.max()))
     scores = torch.stack([scorer.score_tiles(
         tiles, outrow, n_rows, qps[q], gap_open, gap_extend,
-        ceiling=tiers[0], row_start=row_start) for q in range(Q)])
+        ceiling=tiers[0], row_start=row_start, bounds=qbounds[q])
+        for q in range(Q)])
     stats = {"tier_ceilings": list(tiers), "tier_blocks": [n_rows]}
     if tiers[0] is None or len(tiers) == 1:
         return scores.cpu().numpy(), stats
@@ -285,7 +298,7 @@ def score_db_adaptive_batch(packed, qps, query_lens, gap_open: int,
         sub, o, rs = scorer.substream(tiles, cum, union)
         wider = torch.stack([scorer.score_tiles(
             sub, o, len(union), qps[q], gap_open, gap_extend, ceiling=tier,
-            row_start=rs) for q in range(Q)])          # (Q, U, V)
+            row_start=rs, bounds=qbounds[q]) for q in range(Q)])  # (Q, U, V)
         scores[:, torch.from_numpy(union).to(dev)] = wider
         if tier is None:
             break
@@ -303,38 +316,15 @@ def score_db_adaptive(packed, qp, query_len: int, gap_open: int,
     over only the blocks that (a) reached the ceiling and (b) are not
     PROVABLY under it — the per-block bound min(query_len, block_max_len)
     * max_diag (length-sorted packing makes short blocks provably narrow).
+    The one-query case of score_db_adaptive_batch.
 
     Returns (scores (n_rows, V) int32 numpy, identical to an exact pass,
     and a stats dict with per-tier block counts).
     """
-    tiles, outrow, n_rows, row_start = _resident(packed, dev_db, device)[:4]
-    dev = tiles.device
-    qp = torch.as_tensor(qp).to(dev)
-    bounds = (np.minimum(query_len, packed.block_max_lengths())
-              * _max_diag(matrix))
-    tiers = _tiers(tiers, int(bounds.max()))
-    scores = scorer.score_tiles(tiles, outrow, n_rows, qp, gap_open,
-                                gap_extend, ceiling=tiers[0],
-                                row_start=row_start)
-    stats = {"tier_ceilings": list(tiers), "tier_blocks": [n_rows]}
-    if tiers[0] is None or len(tiers) == 1:
-        return scores.cpu().numpy(), stats
-    pending = np.nonzero(_flags(scores, tiers[0]).cpu().numpy()
-                         & (bounds > tiers[0]))[0]
-    cum = _tile_rows(packed)
-    for tier in tiers[1:]:
-        stats["tier_blocks"].append(int(len(pending)))
-        if len(pending) == 0:
-            break
-        sub, o, rs = scorer.substream(tiles, cum, pending)
-        wider = scorer.score_tiles(sub, o, len(pending), qp, gap_open,
-                                   gap_extend, ceiling=tier, row_start=rs)
-        scores[torch.from_numpy(pending).to(dev)] = wider
-        if tier is None:
-            break
-        pending = pending[_flags(wider, tier).cpu().numpy()
-                          & (bounds[pending] > tier)]
-    return scores.cpu().numpy(), stats
+    scores, stats = score_db_adaptive_batch(
+        packed, torch.as_tensor(qp)[None], [query_len], gap_open, gap_extend,
+        tiers=tiers, matrix=matrix, dev_db=dev_db, device=device)
+    return scores[0], stats
 
 
 def score_chunk_adaptive(codes, qp, gap_open: int, gap_extend: int,

@@ -15,19 +15,12 @@ instead; the carries are internal, the contract is the output). The kernels
 update the carries in place, so the streams cost 8 bytes per (db position,
 lane) in all. The result is the max of the per-tile scores.
 
-``score_tiles_long`` runs kernel 2 in its pair form where the input allows
-it (``pair_form_fits``: V a multiple of 64, the gaps and the profile inside
-the 16-bit range): two lanes a thread in 16-bit halves, the carries two
-streams of lane pairs (4 bytes per (db position, lane) in all). A lane
-whose H stays below ``pair_limit`` (32,767 minus the largest profile entry)
-is exact there; one that reaches it may have wrapped, and its maximum says
-so, since the H that first passes the limit is exact and goes into it. So
-after the last tile every DB block with a lane at or above the limit is
-scored again over all query tiles by the int32 form, on a sub-stream of
-those blocks, and its scores replace the pair form's:
-``score_tiles_long.rescored_blocks`` counts them. The bound, the limit and
-the lane-pair helpers are ops/scorer.py's (kernel 1 has a pair form too),
-imported here.
+``score_tiles_long`` runs kernel 2 in its pair form (``score_qtile_pairs``:
+two lanes a thread in 16-bit halves, the carries two streams of lane pairs,
+4 bytes per (db position, lane) in all) behind ops/scorer.py's 16-bit guard
+(``_pair_guard``, kernel 1's too): after the last tile, every block that
+may have wrapped is scored again over all query tiles in the int32 form
+(``score_tiles_long.rescored_blocks`` counts them).
 """
 
 from __future__ import annotations
@@ -35,13 +28,12 @@ from __future__ import annotations
 import torch
 
 from swimm_tpu_torch.alphabet import PAD_SCORE
-from swimm_tpu_torch.ops.scorer import (NEG, ChunkTable, check_chunk,
-                                        check_gaps, check_precision,
-                                        check_stream, chunk_as_stream,
-                                        chunk_kernels, from_pairs, kernels,
-                                        pair_form_fits, pair_limit,
-                                        pair_word, profile_bounds, raise_on,
-                                        rescore_flagged, row_starts,
+from swimm_tpu_torch.ops.scorer import (NEG, ChunkTable, _pair_guard,
+                                        check_chunk, check_gaps,
+                                        check_precision, check_stream,
+                                        chunk_as_stream, chunk_kernels,
+                                        from_pairs, kernels, pair_limit,
+                                        pair_word, raise_on, row_starts,
                                         to_pairs, walk_ref)
 
 LONG_TILE_M = 1024   # query rows per tile (one kernel launch each)
@@ -188,53 +180,54 @@ def score_tiles_long_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
     return best
 
 
-def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
-                     gap_extend: int, precision: str = "f32",
-                     tile_m: int | None = None,
-                     row_start=None, bounds=None) -> torch.Tensor:
-    """Score a whole-DB ragged tile stream against a query of ANY length
-    (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile: in the
-    pair form where pair_form_fits allows it, then, unless the sum of the
-    profile's row maxima stays below pair_limit, the int32 form over the
-    blocks that have a lane at or above it (rescore_flagged: their rows
-    come back to the host); else in the int32 form. bounds: optional
-    scorer.profile_bounds(qp), as score_tiles takes it (the padding's
-    PAD_SCORE columns move none of the three, since every profile's pad
-    codes score PAD_SCORE already); without it they come back from the
-    profile's device.
-
-    Returns (n_rows, V) int32 exact scores.
-    """
-    check_gaps(gap_open, gap_extend)
-    check_precision(precision)
-    tile_m = tile_m or LONG_TILE_M
-    qp, n_qt = pad_to_tiles(qp, tile_m)
-    if row_start is None:
-        row_start = row_starts(outrow, n_rows)
-    lo, hi, top = profile_bounds(qp) if bounds is None else bounds
+def _long_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend, tile_m,
+                row_start):
+    """Every tile_m-row query tile of qp (padded to them) through
+    score_qtile_pairs, with no second pass: (n_rows, V) int32, exact below
+    pair_limit(max(qp))."""
     T, jt, V = tiles.shape
-    if not pair_form_fits(V, gap_open, gap_extend, lo, hi):
-        return score_tiles_long_int32(tiles, outrow, n_rows, qp, gap_open,
-                                      gap_extend, tile_m, row_start)
     half = (T, jt, V // 2)
     hcar = torch.zeros(half, dtype=torch.int32, device=tiles.device)
     # F = -goe above the first row acts as no F at all (H >= 0 there)
     fcar = torch.full(half, pair_word(-(gap_open + gap_extend)),
                       dtype=torch.int32, device=tiles.device)
     best = None
-    for qt in range(n_qt):
+    for qt in range(qp.shape[1] // tile_m):
         qp_tile = qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous()
         out, hcar, fcar = score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
                                             gap_open, gap_extend, hcar, fcar,
                                             row_start)
         best = out if best is None else torch.maximum(best, out)
-    del hcar, fcar
-    if top >= pair_limit(hi):   # a lane may have reached the limit
-        score_tiles_long.rescored_blocks += rescore_flagged(
-            best, pair_limit(hi), tiles, row_start,
-            lambda t, o, n, rs: score_tiles_long_int32(
-                t, o, n, qp, gap_open, gap_extend, tile_m, rs))
     return best
+
+
+def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
+                     gap_extend: int, precision: str = "f32",
+                     tile_m: int | None = None,
+                     row_start=None, bounds=None) -> torch.Tensor:
+    """Score a whole-DB ragged tile stream against a query of ANY length
+    (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile, behind
+    scorer._pair_guard: the pair form where it fits, then the int32 form
+    over the blocks that may have wrapped; else the int32 form. bounds:
+    optional scorer.profile_bounds(qp), as score_tiles takes it (the
+    padding's PAD_SCORE columns move none of the three); without it they
+    come back from the profile's device.
+
+    Returns (n_rows, V) int32 exact scores.
+    """
+    check_gaps(gap_open, gap_extend)
+    check_precision(precision)
+    tile_m = tile_m or LONG_TILE_M
+    qp, _ = pad_to_tiles(qp, tile_m)
+    if row_start is None:
+        row_start = row_starts(outrow, n_rows)
+    return _pair_guard(
+        score_tiles_long, tiles, outrow, n_rows, row_start, qp, gap_open,
+        gap_extend, bounds,
+        lambda t, o, n, rs: _long_pairs(t, o, n, qp, gap_open, gap_extend,
+                                        tile_m, rs),
+        lambda t, o, n, rs: score_tiles_long_int32(t, o, n, qp, gap_open,
+                                                   gap_extend, tile_m, rs))
 
 
 # the CUDA kernel it launches, through score_qtile_pairs and score_qtile

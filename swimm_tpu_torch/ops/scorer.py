@@ -21,7 +21,8 @@ goes into it. So every DB block with a lane at or above the limit is scored
 again in int32 on a sub-stream of those blocks (``rescore_flagged``;
 ``score_tiles.rescored_blocks`` counts them), unless the sum of the
 profile's row maxima, a bound on every H, stays below the limit.
-ops/longquery.py guards kernel 2's pair form the same way.
+``_pair_guard`` is that guard, for kernel 1 here and kernel 2 in
+ops/longquery.py.
 
 (``score_chunk`` is the one-chunk case of ``score_chunks``.) There is no
 fallback from one to the other: a CUDA tensor either reaches the kernel or
@@ -183,6 +184,26 @@ def rescore_flagged(best, limit: int, tiles, row_start, rescore) -> int:
         best[torch.from_numpy(rows).to(best.device)] = rescore(
             sub, o, len(rows), rs)
     return len(rows)
+
+
+def _pair_guard(wrapper, tiles, outrow, n_rows: int, row_start, qp,
+                gap_open: int, gap_extend: int, bounds, pairs, int32):
+    """The 16-bit guard of kernels 1 and 2 (wrapper: score_tiles or
+    longquery.score_tiles_long, whose rescored_blocks it counts). Where
+    pair_form_fits allows it, pairs over the whole stream, then, unless the
+    profile's top stays below pair_limit(hi), int32 over the blocks with a
+    lane at or above it (rescore_flagged); else int32 over the whole
+    stream. pairs and int32 take (tiles, outrow, n_rows, row_start).
+    bounds: profile_bounds(qp), or None to read them from qp (on a card a
+    wait for the device before the launch)."""
+    lo, hi, top = profile_bounds(qp) if bounds is None else bounds
+    if not pair_form_fits(tiles.shape[2], gap_open, gap_extend, lo, hi):
+        return int32(tiles, outrow, n_rows, row_start)
+    best = pairs(tiles, outrow, n_rows, row_start)
+    if top >= pair_limit(hi):          # a lane may have reached the limit
+        wrapper.rescored_blocks += rescore_flagged(best, pair_limit(hi),
+                                                   tiles, row_start, int32)
+    return best
 
 
 def check_precision(precision: str) -> None:
@@ -484,10 +505,9 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
                 ceiling: int | None = None,
                 row_start=None, bounds=None) -> torch.Tensor:
     """Score an entire ragged tile stream (all blocks, any lengths) in ONE
-    kernel launch: in the pair form where ceiling is None and
-    pair_form_fits allows it, then, unless the profile's top stays below
-    pair_limit(hi), the int32 form over the blocks with a lane at or above
-    it (rescore_flagged); else in the int32 form.
+    kernel launch: with no ceiling behind _pair_guard (the pair form where
+    it fits, then the int32 form over the blocks that may have wrapped),
+    else in the int32 form.
 
     Args:
       tiles: (T, jt, V) int8 packed db codes, block-major.
@@ -499,10 +519,10 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
       ceiling: saturating tier — lanes whose exact score reaches it report
         exactly `ceiling`, the others their exact score.
       row_start: optional cached row_starts(outrow, n_rows).
-      bounds: optional profile_bounds(qp); the search paths pass it
-        (engine.score_lanes requires it). Without it the bounds are read
-        from qp, on a card a wait for the device before the launch: for
-        direct callers only.
+      bounds: optional profile_bounds(qp); the search paths and the ladder
+        pass it (ops/lanes.py's Profile holds it). Without it the bounds are
+        read from qp, on a card a wait for the device before the launch:
+        for direct callers only.
 
     Returns: (n_rows, V) int32 exact local-alignment scores.
     """
@@ -510,19 +530,16 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
     check_tiles(tiles, outrow, qp, gap_open, gap_extend, row_start)
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
-    if ceiling is None:
-        lo, hi, top = profile_bounds(qp) if bounds is None else bounds
-        if pair_form_fits(tiles.shape[2], gap_open, gap_extend, lo, hi):
-            best = _tiles_pairs(tiles, outrow, n_rows, qp, gap_open,
-                                gap_extend, row_start)
-            if top >= pair_limit(hi):      # a lane may have reached it
-                score_tiles.rescored_blocks += rescore_flagged(
-                    best, pair_limit(hi), tiles, row_start,
-                    lambda t, o, n, rs: _tiles_int32(
-                        t, o, n, qp, gap_open, gap_extend, None, rs))
-            return best
-    return _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend,
-                        ceiling, row_start)
+    if ceiling is not None:
+        return _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend,
+                            ceiling, row_start)
+    return _pair_guard(
+        score_tiles, tiles, outrow, n_rows, row_start, qp, gap_open,
+        gap_extend, bounds,
+        lambda t, o, n, rs: _tiles_pairs(t, o, n, qp, gap_open, gap_extend,
+                                         rs),
+        lambda t, o, n, rs: _tiles_int32(t, o, n, qp, gap_open, gap_extend,
+                                         None, rs))
 
 
 score_tiles.launches = 0   # sw_ragged_kernel<CEIL> launches (the int32

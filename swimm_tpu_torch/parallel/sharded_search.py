@@ -10,12 +10,13 @@
   (engine.device_tiles); any other uploads the block range its shards
   cover, once.
 - Each cell (d, q) scores its shard against the queries of column q (the
-  batch padded to the 'query' axis; pad queries are not launched): kernel
-  1 per query, or kernel 2 per 1,024-row query tile past max_query_pad()
-  padded rows. Pad lanes are masked to -1 and the shard's top-kk taken on
-  its device in (score desc, sorted index asc) order (engine.device_top_k),
-  as global sorted indices; a shard with fewer than kk lanes pads its
-  candidates with -1, so every cell's array is (Ql, kk).
+  batch padded to the 'query' axis; pad queries are not launched) through
+  ops/lanes.score: kernel 1 per query, or kernel 2 per 1,024-row query
+  tile past max_query_pad() padded rows. Pad lanes are masked to -1 and
+  the shard's top-kk taken on its device in (score desc, sorted index asc)
+  order (engine.device_top_k), as global sorted indices; a shard with
+  fewer than kk lanes pads its candidates with -1, so every cell's array
+  is (Ql, kk).
 - The merge gathers the columns' candidates over 'data' into (Q, n_data *
   kk), the reference's shape. In one process that is a copy of each
   shard's candidates to the column's output device (the cells are driven
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from swimm_tpu_torch.db import PackedDb
-from swimm_tpu_torch.models.profile import build_query_profile
+from swimm_tpu_torch.ops import lanes
 from swimm_tpu_torch.utils.metrics import PhaseTimer, SearchMetrics
 
 TOPK_PER_SHARD = 256  # BASELINE config 4
@@ -61,14 +62,13 @@ class Shard:
     lane_bins: torch.Tensor | None = None   # (n_rows * V,) int32, E-values
 
 
-def _local_score_topk(shard: Shard, qps: list, mode: str, config, kk: int,
+def _local_score_topk(shard: Shard, qps: list, config, kk: int,
                       with_hist: bool = False):
     """The per-shard body shared by every step: score each local query over
-    the shard (qps: ((32, m) int32 profile on its device, its
-    scorer.profile_bounds) per query, None for a pad query of the query
-    axis, which is not launched), mask pad lanes to -1,
-    take the top-kk in (score desc, sorted index asc) order as global
-    sorted indices, and with with_hist each query's (N_LEN_BINS,
+    the shard (qps: a lanes.Profile on the shard's device per query, None
+    for a pad query of the query axis, which is not launched), mask pad
+    lanes to -1, take the top-kk in (score desc, sorted index asc) order as
+    global sorted indices, and with with_hist each query's (N_LEN_BINS,
     SCORE_CAP + 1) int64 score histogram over the shard's valid lanes.
 
     Returns (vals (Ql, kk) int32, idx (Ql, kk) int64[, hists]) on the
@@ -81,13 +81,12 @@ def _local_score_topk(shard: Shard, qps: list, mode: str, config, kk: int,
     hists = (torch.zeros((len(qps), stats.N_LEN_BINS, stats.SCORE_CAP + 1),
                          dtype=torch.int64, device=dev) if with_hist else None)
     n = min(kk, shard.mask.numel())
-    for row, cell in enumerate(qps):
-        if cell is None or n == 0:
+    for row, prof in enumerate(qps):
+        if prof is None or n == 0:
             continue
-        qp, bounds = cell
-        scores = engine.score_lanes(
-            (shard.tiles, shard.outrow, shard.n_rows, shard.row_start), qp,
-            mode, config, bounds)
+        scores = lanes.score(
+            (shard.tiles, shard.outrow, shard.n_rows, shard.row_start), prof,
+            config.gap_open, config.gap_extend)
         vals[row, :n], idx[row, :n] = engine.device_top_k(
             scores, shard.mask, shard.lane2sorted, n)
         if with_hist:
@@ -102,13 +101,12 @@ def _column_rows(mesh, q: int, n_pad: int) -> range:
     return range(q * ql, (q + 1) * ql)
 
 
-def sharded_tiles_local_topk(tile_shards, profiles, *, mesh, config, mode,
+def sharded_tiles_local_topk(tile_shards, profiles, *, mesh, config,
                              k=TOPK_PER_SHARD, with_hist=False):
     """Stage 1 of the SPLIT sharded step: every local cell scores its shard
     and takes its top-kk, with no communication. profiles: {device:
-    [((32, m) tensor, its bounds) or None per padded query]}
-    (_cell_profiles). Returns {(d, q):
-    (vals, idx[, hists])}, each on its cell's device. Pair with
+    [lanes.Profile or None per padded query]} (_cell_profiles). Returns
+    {(d, q): (vals, idx[, hists])}, each on its cell's device. Pair with
     merge_candidates (stage 2) to time the merge apart."""
     shards, kk = tile_shards["shards"], min(k, tile_shards["R_loc"]
                                             * tile_shards["V"])
@@ -116,8 +114,8 @@ def sharded_tiles_local_topk(tile_shards, profiles, *, mesh, config, mode,
     for (d, q), shard in shards.items():
         qps = profiles[str(shard.tiles.device)]
         rows = _column_rows(mesh, q, len(qps))
-        out[d, q] = _local_score_topk(shard, [qps[r] for r in rows], mode,
-                                      config, kk, with_hist)
+        out[d, q] = _local_score_topk(shard, [qps[r] for r in rows], config,
+                                      kk, with_hist)
     return out
 
 
@@ -158,24 +156,23 @@ def merge_candidates(cells: dict, *, mesh) -> dict:
     return merged
 
 
-def sharded_tiles_topk(tile_shards, profiles, *, mesh, config, mode,
+def sharded_tiles_topk(tile_shards, profiles, *, mesh, config,
                        k=TOPK_PER_SHARD):
     """Whole-DB sharded search step: each cell scores its shard, takes its
     top-kk, and the candidates gather over 'data'. Returns {q: (vals (Ql,
     n_data * kk) int32, idx int64)} (merge_candidates)."""
     return merge_candidates(sharded_tiles_local_topk(
-        tile_shards, profiles, mesh=mesh, config=config, mode=mode, k=k),
-        mesh=mesh)
+        tile_shards, profiles, mesh=mesh, config=config, k=k), mesh=mesh)
 
 
-def sharded_tiles_topk_hist(tile_shards, profiles, *, mesh, config, mode,
+def sharded_tiles_topk_hist(tile_shards, profiles, *, mesh, config,
                             k=TOPK_PER_SHARD):
     """sharded_tiles_topk plus E-value statistics: each shard also takes
     every local query's score histogram over its valid lanes, summed over
     'data'. Returns {q: (vals, idx, hists (Ql, N_LEN_BINS, SCORE_CAP + 1)
     int64)}."""
     return merge_candidates(sharded_tiles_local_topk(
-        tile_shards, profiles, mesh=mesh, config=config, mode=mode, k=k,
+        tile_shards, profiles, mesh=mesh, config=config, k=k,
         with_hist=True), mesh=mesh)
 
 
@@ -317,29 +314,32 @@ def _with_lane_bins(packed: PackedDb, tile_shards) -> None:
                                             int(bounds[d + 1]) * V]
 
 
-def pad_queries(qps: np.ndarray, mesh) -> np.ndarray:
-    """Pad the query axis to the 'query' mesh axis size (with all-PAD
-    profiles that score 0 everywhere)."""
-    from swimm_tpu_torch.alphabet import PAD_SCORE
-    nq = mesh.shape["query"]
-    Q = qps.shape[0]
-    Qp = ((Q + nq - 1) // nq) * nq
-    if Qp != Q:
-        pad = np.full((Qp - Q,) + qps.shape[1:], PAD_SCORE, dtype=qps.dtype)
-        qps = np.concatenate([qps, pad], axis=0)
-    return qps
-
-
-def _cell_profiles(qps: np.ndarray, n_real: int, mesh) -> dict:
-    """{device: [((32, m) int32 tensor, its scorer.profile_bounds) per real
-    query, None per pad]} for every device of this process's cells: one
-    upload per device; the bounds are taken once a query, on the host."""
-    from swimm_tpu_torch.ops import scorer
-    host = [torch.from_numpy(qps[r]) for r in range(n_real)]
-    bounds = [scorer.profile_bounds(qp) for qp in host]
-    return {str(dev): [(qp.to(dev), b) for qp, b in zip(host, bounds)]
-            + [None] * (len(qps) - n_real)
+def _cell_profiles(queries, config, mesh) -> dict:
+    """{device: [lanes.Profile per query, then None per pad query, up to a
+    multiple of the 'query' axis]} for every device of this process's
+    cells: each query's profile (queries of one padded length), its bounds
+    taken once, on the host; one upload per device."""
+    host = [lanes.Profile.build(q, config) for q in queries]
+    n_pad = -len(host) % mesh.shape["query"]
+    return {str(dev): [replace(p, qp=p.qp.to(dev)) for p in host]
+            + [None] * n_pad
             for dev in {mesh.devices[c] for c in mesh.local_cells()}}
+
+
+def _group_profiles(queries, config, mesh):
+    """([(positions, _cell_profiles of their queries)] per padded-length
+    group, shortest first; the query rows the groups dispatch per shard,
+    pad queries none)."""
+    from swimm_tpu_torch.models import engine
+    groups, rows = [], 0
+    for _, positions in sorted(engine.group_by_m_pad(
+            queries, config.m_multiple).items()):
+        profiles = _cell_profiles([queries[p] for p in positions], config,
+                                  mesh)
+        groups.append((positions, profiles))
+        rows += sum(p.rows for p in next(iter(profiles.values()))
+                    if p is not None)
+    return groups, rows
 
 
 def _sync(mesh) -> None:
@@ -394,7 +394,6 @@ def sharded_search(packed: PackedDb, queries, config=None, mesh=None,
     Returns (list[QueryResult], SearchMetrics).
     """
     from swimm_tpu_torch.models import engine
-    from swimm_tpu_torch.models.stream import dispatched_rows, select_mode
     from swimm_tpu_torch.utils import stats
 
     config = config or engine.SearchConfig()
@@ -411,7 +410,6 @@ def sharded_search(packed: PackedDb, queries, config=None, mesh=None,
     engine.check_supported(replace(config, db_stream=False))
     timer = PhaseTimer()
     t0 = time.perf_counter()
-    groups = engine.group_by_m_pad(queries, config.m_multiple)
     Q = len(queries)
     with timer.phase("h2d"):
         if tile_shards is None:
@@ -423,32 +421,23 @@ def sharded_search(packed: PackedDb, queries, config=None, mesh=None,
     kwargs = dict(mesh=mesh, config=config, k=topk_per_shard)
 
     all_v, all_i, all_h = [None] * Q, [None] * Q, [None] * Q
-    padded_rows = 0
     # every profile is uploaded before the first launch: a copy from
     # pageable memory waits for the launches queued before it
-    staged = []
     with timer.phase("profiles"):
-        for m_pad, positions in sorted(groups.items()):
-            mode = select_mode(m_pad)
-            qps = pad_queries(np.stack([_fixed_profile(queries[p], config,
-                                                       m_pad)
-                                        for p in positions]), mesh)
-            staged.append((positions, mode,
-                           _cell_profiles(qps, len(positions), mesh)))
-            padded_rows += dispatched_rows(mode, m_pad) * len(positions)
+        staged, padded_rows = _group_profiles(queries, config, mesh)
     pending = []
-    for positions, mode, profiles in staged:
+    for positions, profiles in staged:
         if measure_merge:
             with timer.phase("score"):
                 cells = sharded_tiles_local_topk(tile_shards, profiles,
-                                                 mode=mode, **kwargs)
+                                                 **kwargs)
                 _sync(mesh)
             with timer.phase("merge"):
                 cols = merge_candidates(cells, mesh=mesh)
                 _sync(mesh)
         else:
             with timer.phase("score+merge"):
-                cols = step(tile_shards, profiles, mode=mode, **kwargs)
+                cols = step(tile_shards, profiles, **kwargs)
         pending.append((positions, cols))
     with timer.phase("d2h" if measure_merge else "score+merge"):
         for positions, cols in pending:
@@ -485,11 +474,3 @@ def sharded_search(packed: PackedDb, queries, config=None, mesh=None,
         timers=timers)
     return results, metrics
 
-
-def _fixed_profile(q, config, m_pad):
-    from swimm_tpu_torch.alphabet import PAD_CODE
-    codes = np.full(m_pad, PAD_CODE, dtype=np.uint8)
-    codes[:q.length] = q.codes
-    # build_query_profile pads to a multiple; feeding the pre-padded codes
-    # with m_multiple=1 keeps every query at the common m_pad length
-    return build_query_profile(codes, config.matrix, m_multiple=1)

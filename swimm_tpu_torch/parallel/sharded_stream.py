@@ -56,12 +56,11 @@ def search_streaming_sharded(packed: PackedDb, queries, config=None,
     Returns (list[QueryResult], SearchMetrics).
     """
     from swimm_tpu_torch.models import engine
-    from swimm_tpu_torch.models.stream import (dispatched_rows,
-                                               plan_windows, select_mode,
-                                               stream_layout, stream_windows)
+    from swimm_tpu_torch.models.stream import (plan_windows, stream_layout,
+                                               stream_windows)
     from swimm_tpu_torch.parallel.sharded_search import (
-        Shard, _cell_profiles, _column_rows, _device_to_host,
-        _fixed_profile, _local_score_topk, merge_candidates, pad_queries)
+        Shard, _column_rows, _device_to_host, _group_profiles,
+        _local_score_topk, merge_candidates)
     from swimm_tpu_torch.utils import stats
 
     config = config or engine.SearchConfig()
@@ -100,17 +99,7 @@ def search_streaming_sharded(packed: PackedDb, queries, config=None,
             _, bin_logl = stats.length_bins(packed.lengths)
 
     with timer.phase("profiles"):
-        groups = []
-        padded_rows = 0
-        for m_pad, positions in sorted(engine.group_by_m_pad(
-                queries, config.m_multiple).items()):
-            mode = select_mode(m_pad)
-            qps = pad_queries(np.stack([_fixed_profile(queries[p], config,
-                                                       m_pad)
-                                        for p in positions]), mesh)
-            groups.append((positions, mode,
-                           _cell_profiles(qps, len(positions), mesh)))
-            padded_rows += dispatched_rows(mode, m_pad) * len(positions)
+        groups, padded_rows = _group_profiles(queries, config, mesh)
 
     # per cell and group: each span's (vals, idx), and the summed hists
     cands = {c: [[] for _ in groups] for c in cells}
@@ -135,12 +124,12 @@ def search_streaming_sharded(packed: PackedDb, queries, config=None,
                                   maps[dk][0][lanes], maps[dk][1][lanes],
                                   bins[dk][lanes] if config.evalue else None)
                     for c in row_cells:
-                        for gi, (_, mode, profiles) in enumerate(groups):
+                        for gi, (_, profiles) in enumerate(groups):
                             qps = profiles[dk]
                             out = _local_score_topk(
                                 shard, [qps[r] for r in _column_rows(
                                     mesh, c[1], len(qps))],
-                                mode, config, kk, config.evalue)
+                                config, kk, config.evalue)
                             cands[c][gi].append(out[:2])
                             if config.evalue:
                                 hists[c][gi] = (out[2] if hists[c][gi] is None
@@ -150,7 +139,7 @@ def search_streaming_sharded(packed: PackedDb, queries, config=None,
                 gen.close()
 
         results = [None] * len(queries)
-        for gi, (positions, _, profiles) in enumerate(groups):
+        for gi, (positions, profiles) in enumerate(groups):
             n_pad = len(next(iter(profiles.values())))
             per_cell = {}
             for c in cells:

@@ -23,6 +23,7 @@ from swimm_tpu.utils.synth import mutate
 from swimm_tpu_torch import SearchConfig, build_db, score_db, search
 from swimm_tpu_torch.fasta import FastaRecord
 from swimm_tpu_torch.models import engine, qpack
+from swimm_tpu_torch.ops.lanes import select_mode
 from swimm_tpu_torch.utils.synth import random_codes, synth_db
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -75,7 +76,7 @@ def test_search_matches_jax_long_query(tmp_path):
     recs[5] = FastaRecord("hom planted_homolog",
                           mutate(rng, long_q.codes[:60], 0.1, 0.0))
     pt, pj = _db(tmp_path, recs)
-    assert engine.select_mode(2064) == j_mode("pallas", 2064) == "tiles_long"
+    assert select_mode(2064) == j_mode("pallas", 2064) == "tiles_long"
     got, metrics = _compare(pt, pj, [long_q, short_q], top_k=4)
     assert got[0].hits[0].title == "hom planted_homolog"
     lanes = sum(ch.n_blocks * ch.L * ch.V for ch in pt.chunks)

@@ -248,7 +248,7 @@ def test_pair_form_rescores_every_lane_that_could_wrap(make):
     tiles, outrow = _stream(blocks)
     n_rows, V = len(blocks), blocks[0].shape[1]
     limit = tlong.pair_limit(int(qp.max()))
-    assert tlong.pair_form_fits(V, 10, 2, int(qp.min()), int(qp.max()))
+    assert scorer.pair_form_fits(V, 10, 2, int(qp.min()), int(qp.max()))
     exp = cref.sw_score_many(q, _lane_seqs(blocks), mat, 10, 2).reshape(
         n_rows, V)
     for (b, v), score in planted.items():
@@ -289,7 +289,7 @@ def test_inputs_outside_the_pair_form_take_the_int32_form(V, gaps, entry,
     qp = torch.from_numpy(t_profile(q, mat, m_multiple=8))
     blocks = _blocks(rng, {(1, 2): q[:50]}, 2, 64, V)
     tiles, outrow = _stream(blocks)
-    assert not tlong.pair_form_fits(V, *gaps, int(qp.min()), int(qp.max()))
+    assert not scorer.pair_form_fits(V, *gaps, int(qp.min()), int(qp.max()))
 
     def refuse(*a, **k):
         raise AssertionError("the pair form was taken")
@@ -330,8 +330,8 @@ def test_lane_pairs_round_trip_and_the_bounds():
     assert tlong.pair_word(-12) == int(tlong.to_pairs(torch.tensor(
         [-12, -12], dtype=torch.int32)))
     assert tlong.pair_limit(11) == 32756
-    assert tlong.pair_form_fits(128, 10, 2, -64, 11)
-    assert tlong.pair_form_fits(64, 16384, 0, -32768, 32767 - 16384)
+    assert scorer.pair_form_fits(128, 10, 2, -64, 11)
+    assert scorer.pair_form_fits(64, 16384, 0, -32768, 32767 - 16384)
     for args in ((64, 16384, 1, -4, 11), (64, 10, 2, -32769, 11),
                  (64, 10, 2, -4, 32756), (160, 10, 2, -4, 11)):
-        assert not tlong.pair_form_fits(*args)
+        assert not scorer.pair_form_fits(*args)

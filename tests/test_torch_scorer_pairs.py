@@ -257,8 +257,9 @@ def test_scalars_from_the_caller_equal_scalars_from_the_profile(
 
 
 def test_score_tiles_long_takes_the_callers_scalars(monkeypatch):
-    # kernel 2's scorer takes the same scalars (engine.score_lanes gives
-    # them to both lane scorers): equal scores, guard included, and no read
+    # kernel 2's scorer takes the same scalars (lanes.score gives a
+    # profile's to both lane scorers): equal scores, guard included, and no
+    # read
     q, mat, blocks, _ = _big_entry_case(np.random.default_rng(79))
     qp = torch.from_numpy(build_query_profile(q, mat, 8))
     tiles, outrow = _stream(blocks)
@@ -268,10 +269,60 @@ def test_score_tiles_long_takes_the_callers_scalars(monkeypatch):
     def refuse(qp):
         raise AssertionError("the bounds were read from the profile")
 
-    monkeypatch.setattr(tlong, "profile_bounds", refuse)
+    monkeypatch.setattr(scorer, "profile_bounds", refuse)
     assert torch.equal(tlong.score_tiles_long(tiles, outrow, 4, qp, 10, 2,
                                               tile_m=24, bounds=bounds),
                        read)
+
+
+def _guard_cases(rng):
+    """(name, V, gaps, matrix, query codes, blocks, forms the guard takes):
+    the pair form alone, the pair form and the int32 re-score of the blocks
+    that reach the limit, and the int32 form for a V or gaps outside the
+    pair form."""
+    blosum = get_matrix("BLOSUM62")
+    q = random_codes(rng, 40)
+    big_q, big_mat, big_blocks, _ = _big_entry_case(rng)
+    return [
+        ("pairs", 64, (10, 2), blosum, q,
+         _random_blocks(rng, [32, 64], 64), ["pairs"]),
+        ("rescore", 64, (10, 2), big_mat, big_q, big_blocks,
+         ["pairs", "int32"]),
+        ("narrow_V", 32, (10, 2), blosum, q,
+         _random_blocks(rng, [32, 64], 32), ["int32"]),
+        ("wide_gaps", 64, (16000, 385), blosum, q,
+         _random_blocks(rng, [32, 64], 64), ["int32"])]
+
+
+@pytest.mark.parametrize("kernel", [1, 2], ids=["kernel1", "kernel2"])
+def test_one_guard_makes_one_choice_for_both_kernels(kernel, monkeypatch):
+    # scorer._pair_guard decides for score_tiles and score_tiles_long alike:
+    # for the same (V, gaps, bounds) both take the pair form or the int32
+    # form, and both re-score in int32 or neither does; exact either way
+    forms = []
+    if kernel == 1:
+        mod, names, fn = scorer, ("_tiles_pairs", "_tiles_int32"), (
+            scorer.score_tiles)
+    else:
+        mod, names, fn = tlong, ("_long_pairs", "score_tiles_long_int32"), (
+            lambda *a, **kw: tlong.score_tiles_long(*a, tile_m=24, **kw))
+    for form, name in zip(("pairs", "int32"), names):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _f=form: (
+            forms.append(_f), _r(*a))[1])
+    wrapper = scorer.score_tiles if kernel == 1 else tlong.score_tiles_long
+    for name, V, gaps, mat, q, blocks, want in _guard_cases(
+            np.random.default_rng(89)):
+        qp = torch.from_numpy(build_query_profile(q, mat, 8))
+        tiles, outrow = _stream(blocks)
+        forms.clear()
+        before = wrapper.rescored_blocks
+        got = fn(tiles, outrow, len(blocks), qp, *gaps,
+                 bounds=scorer.profile_bounds(qp))
+        assert forms == want, name
+        assert (wrapper.rescored_blocks > before) == (len(want) == 2), name
+        assert torch.equal(got, scorer.score_tiles_ref(
+            tiles, outrow, len(blocks), qp, *gaps)), name
 
 
 def test_profile_bounds_and_the_pair_scratch():
@@ -391,3 +442,46 @@ def test_sharded_search_passes_host_bounds(world, mesh_shape, stream,
     assert host == ["cpu"] * len(queries)      # once a query, on the host
     assert ([[(h.score, h.sorted_idx) for h in r.hits] for r in got]
             == [[(h.score, h.sorted_idx) for h in r.hits] for r in want])
+
+
+@pytest.mark.parametrize("evalue", [False, True])
+def test_ladder_passes_host_bounds_and_equals_jax(world, evalue,
+                                                  monkeypatch):
+    # precision='ladder' (its tiers, or under evalue score_db's full
+    # vectors) and score_db under the ladder: every score_tiles launch gets
+    # its profile's bounds, taken on the host before the upload; none is
+    # taken inside a launch (on a card, a wait for the device); the hits
+    # and scores equal swimm_tpu's
+    packed, pj, queries = world
+    real, bounds_of = scorer.score_tiles, scorer.profile_bounds
+    seen, taken, inside = [], [], []
+
+    def spy(tiles, outrow, n_rows, qp, go, ge, **kw):
+        seen.append((kw.get("ceiling"), kw.get("bounds") == bounds_of(qp)))
+        inside.append(True)
+        try:
+            return real(tiles, outrow, n_rows, qp, go, ge, **kw)
+        finally:
+            inside.pop()
+
+    spy.kernel = real.kernel
+    monkeypatch.setattr(scorer, "score_tiles", spy)
+    monkeypatch.setattr(scorer, "profile_bounds", lambda qp: (
+        taken.append(bool(inside)), bounds_of(qp))[1])
+    cfg = dict(top_k=5, precision="ladder", evalue=evalue)
+    got, _ = engine.search(packed, queries, SearchConfig(**cfg),
+                           device="cpu")
+    vec = engine.score_db(packed, queries[2], SearchConfig(
+        precision="ladder"), device="cpu")
+    assert seen and all(ok for _, ok in seen)
+    assert None in [c for c, _ in seen]          # an exact tier ran
+    assert len(taken) > len(queries) and not any(taken)
+    ref, _ = jengine.search(pj, [JRecord(q.title, q.codes) for q in queries],
+                            jengine.SearchConfig(backend="xla", **cfg))
+    assert ([[(h.score, h.sorted_idx, h.evalue) for h in r.hits]
+             for r in got]
+            == [[(h.score, h.sorted_idx, h.evalue) for h in r.hits]
+                for r in ref])
+    assert np.array_equal(vec, jengine.score_db(
+        pj, JRecord(queries[2].title, queries[2].codes),
+        jengine.SearchConfig(backend="xla", precision="ladder")))

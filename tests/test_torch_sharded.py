@@ -115,11 +115,10 @@ def test_split_score_merge_equals_fused(world):
     # the split steps return what the fused step does
     mesh = _cpu_mesh(4, 2)
     shards = sharded.build_tile_shards(pt, mesh)
-    qps = sharded.pad_queries(np.stack([
-        sharded._fixed_profile(q, SearchConfig(), 112) for q in queries[:3]]),
-        mesh)
-    prof = sharded._cell_profiles(qps, 3, mesh)
-    kw = dict(mesh=mesh, config=SearchConfig(), mode="tiles", k=8)
+    prof = sharded._cell_profiles(queries[:3], SearchConfig(), mesh)
+    assert [p is None for p in prof["cpu"]] == [False, False, False, True]
+    assert {p.kernel for p in prof["cpu"][:3]} == {"sw_ragged_kernel"}
+    kw = dict(mesh=mesh, config=SearchConfig(), k=8)
     fused = sharded.sharded_tiles_topk(shards, prof, **kw)
     split = sharded.merge_candidates(sharded.sharded_tiles_local_topk(
         shards, prof, **kw), mesh=mesh)

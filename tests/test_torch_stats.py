@@ -21,6 +21,7 @@ from swimm_tpu.utils import stats as jstats
 from swimm_tpu_torch import SearchConfig, build_db, search
 from swimm_tpu_torch.fasta import FastaRecord, write_fasta
 from swimm_tpu_torch.models import engine
+from swimm_tpu_torch.ops.lanes import select_mode
 from swimm_tpu_torch.utils import stats
 from swimm_tpu_torch.utils.synth import random_codes, synth_db, synth_queries
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -195,7 +196,7 @@ def test_search_evalue_long_query_matches_jax(tmp_path):
     recs = synth_db(40, seed=32, median_len=50, max_len=90)
     pt = build_db(recs, tmp_path / "t", V=8)
     pj = j_build_db(recs, tmp_path / "j", V=8, use_native=False)
-    assert engine.select_mode(2064) == "tiles_long"
+    assert select_mode(2064) == "tiles_long"
     got, _ = search(pt, [long_q], SearchConfig(top_k=6, evalue=True),
                     device="cpu")
     assert _hits(got) == _hits(_jsearch(pj, [long_q], top_k=6, evalue=True))

@@ -26,6 +26,7 @@ from swimm_tpu_torch import (SearchConfig, build_db, load_db, score_db,
 from swimm_tpu_torch.db import PackedDb
 from swimm_tpu_torch.fasta import FastaRecord, write_fasta
 from swimm_tpu_torch.models import engine, stream
+from swimm_tpu_torch.ops.lanes import select_mode
 from swimm_tpu_torch.utils.synth import random_codes, synth_db, synth_queries
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -152,8 +153,8 @@ def test_stream_long_query_matches_jax(long_world, merge):
     # a query past 2,048 padded rows streams through kernel 2's mode (one
     # call per query tile per window) beside a short one in kernel 1's
     pt, pj, queries = long_world
-    assert [stream.select_mode(m) for m in (2064, 32)] == ["tiles_long",
-                                                          "tiles"]
+    assert [select_mode(m) for m in (2064, 32)] == ["tiles_long",
+                                                         "tiles"]
     cfg = dict(top_k=6, db_stream=True, window_tiles=8, stream_scores=merge)
     got, m = search(pt, queries, SearchConfig(**cfg), device="cpu")
     assert _hits(got) == _hits(_jsearch(pj, queries, **cfg))

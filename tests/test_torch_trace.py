@@ -23,7 +23,7 @@ from swimm_tpu_torch.alphabet import decode
 from swimm_tpu_torch.fasta import FastaRecord, write_fasta
 from swimm_tpu_torch.models import engine
 from swimm_tpu_torch.models.engine import SearchConfig
-from swimm_tpu_torch.ops import scorer
+from swimm_tpu_torch.ops import lanes, longquery, scorer
 from swimm_tpu_torch.server import Batcher, SearchServer, make_socket_server
 from swimm_tpu_torch.utils import metrics
 from swimm_tpu_torch.utils.metrics import PhaseTimer, record, span, spans
@@ -268,12 +268,15 @@ def test_engine_launch_counts_sum_to_search_metrics(tmp_path, lengths):
 @pytest.mark.parametrize("mode,kernel", [
     ("tiles", "sw_ragged_kernel"), ("tiles_long", "sw_ragged_qtile_kernel")])
 def test_engine_launch_names_the_wrappers_kernel(mode, kernel):
-    """engine.launch's kernel attr is the name the scorer wrapper gives the
-    CUDA kernel it launches (the device trace's name, by which the kernel
-    rooflines split cells)."""
-    fn = engine.lane_scorer(mode)
+    """engine.launch's kernel attr, a lanes.Profile's kernel, is the name the
+    scorer wrapper gives the CUDA kernel it launches (the device trace's
+    name, by which the kernel rooflines split cells)."""
+    length = 20 if mode == "tiles" else 2050
+    prof = lanes.Profile.build(FastaRecord("q", random_codes(
+        np.random.default_rng(5), length)), SearchConfig())
+    assert prof.mode == mode and prof.kernel == kernel
+    fn = scorer.score_tiles if mode == "tiles" else longquery.score_tiles_long
     assert fn.kernel == kernel
-    assert (fn is scorer.score_tiles) == (mode == "tiles")
 
 
 def test_engine_untraced_records_nothing(packed):

@@ -15,12 +15,14 @@ passes of --batches batches each and prints one JSON line:
 
   wall_ms         engine.search's wall time a batch, untraced, nothing
                   wrapped (the cell's gcups is its cells over these)
-  launch_host_ms  host time a batch inside engine.score_lanes (second pass,
-                  wrapped): the launch path's host work, which the card
-                  waits for only where the host is not ahead of it
-  head_ms         from engine.search's start to its first score_lanes call
+  launch_host_ms  host time a batch inside the scoring call (second pass,
+                  wrapped): ops/lanes.score, or engine.score_lanes in a
+                  tree without ops/lanes.py; the launch path's host work,
+                  which the card waits for only where the host is not
+                  ahead of it
+  head_ms         from engine.search's start to its first scoring call
                   (second pass): profile builds and the first window's read
-  syncs           synchronizing CUDA calls inside score_lanes over the
+  syncs           synchronizing CUDA calls inside the scoring call over the
                   second pass (torch.cuda.set_sync_debug_mode("warn"))
   busy_ms         the device's busy time a batch (third pass, under
                   torch.profiler through swbench.trace.Tracer: the union
@@ -109,7 +111,12 @@ def child(work: Path, seed: int, batches: int, device: str) -> dict:
         batch()
         wall.append((time.perf_counter() - t0) * 1e3)
 
-    real = engine.score_lanes
+    try:
+        from swimm_tpu_torch.ops import lanes
+        owner, name = lanes, "score"
+    except ImportError:
+        owner, name = engine, "score_lanes"
+    real = getattr(owner, name)
     state = {"host": 0.0, "first": None, "syncs": 0}
 
     def timed(*a, **kw):
@@ -127,7 +134,7 @@ def child(work: Path, seed: int, batches: int, device: str) -> dict:
                                   for w in caught)
             state["host"] += time.perf_counter() - t0
 
-    engine.score_lanes = timed
+    setattr(owner, name, timed)
     host, head = [], []
     try:
         for _ in range(batches):
@@ -137,7 +144,7 @@ def child(work: Path, seed: int, batches: int, device: str) -> dict:
             host.append(state["host"] * 1e3)
             head.append((state["first"] - t0) * 1e3)
     finally:
-        engine.score_lanes = real
+        setattr(owner, name, real)
 
     spans = []
     tracer = Tracer(work / f"trace_{os.getpid()}")
