@@ -80,7 +80,14 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      size, bit-exact (the whole tile stream at query 0's m; the first two
      1024-row tiles of the long query, scores and both outgoing carries, in
      kernel 2's int32 form and in its pair form, whose time is kernel 2's
-     and the int32 form's beside it;
+     and the int32 form's beside it; the canonical 5,147- and 5,478-aa
+     queries in kernel 2's pair form tile by tile, their last tiles of 32
+     and 368 rows against the plain walk from the same carries in, scores
+     and both carries out, the whole query equal to score_tiles_long and
+     to the int32 form; the canonical batch's 8 queries past 2,048 rows
+     through score_tiles_long timed, 36 launches and 8 short last tiles
+     (score_tiles_long.short_tiles), beside the same profiles padded with
+     PAD_SCORE to whole 1,024-row tiles;
      the widest pack over the whole stream; every chunk at query 0's m in
      one launch, also equal to kernel 1's lanes;
      the long query's third tile over every chunk with the second tile's
@@ -229,6 +236,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 N_SEQS = 570_000
 N_QUERIES = 20
 LONG_LEN = 5000
+# the canonical batch's queries past 2,048 padded rows (aa)
+CANONICAL_LONG = (2504, 3005, 3564, 4061, 4548, 4743, 5147, 5478)
 N_SHORT = 100               # short queries, per query against packed
 FUZZ_CAP = 64               # phase 20's most fuzz rounds
 
@@ -498,16 +507,13 @@ def compare_qtile_pairs(rng, errs: dict) -> None:
         counted = (lq.score_tiles_long.rescored_blocks - before[0],
                    lq.score_qtile_pairs.launches - before[1],
                    lq.score_qtile.launches - before[2])
-        qpp, _ = lq.pad_to_tiles(qp, tile_m)   # the pair form alone
         h = torch.zeros((*tiles.shape[:2], V // 2), dtype=torch.int32,
                         device=tiles.device)
         f = torch.full_like(h, lq.pair_word(-12))
         raw = None
-        for qt in range(qpp.shape[1] // tile_m):
-            out, h, f = lq.score_qtile_pairs(
-                tiles, outrow, n_rows,
-                qpp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), 10, 2,
-                h, f)
+        for qp_tile in lq.tile_profiles(qp, tile_m):   # the pair form alone
+            out, h, f = lq.score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
+                                             10, 2, h, f)
             raw = out if raw is None else torch.maximum(raw, out)
         raw = raw.cpu().numpy()
         one = scorer.score_tiles_ref(tiles, outrow, n_rows, qp, 10,
@@ -625,6 +631,110 @@ def compare_tiles_pairs(rng, errs: dict) -> None:
         errs[k1] = max(errs[k1], max_err(got, ref))
         note(f"{k1} V={V} gaps {go}/{ge} (the int32 form): max_abs_err="
              f"{max_err(got, ref)}")
+
+
+def canonical_long_queries(tiles, outrow, n_rows, row_start, m_multiple,
+                           errs: dict) -> dict:
+    """Kernel 2 on the canonical batch's queries past 2,048 rows (random
+    residues, CANONICAL_LONG's lengths) over the whole stream, each cut
+    into full 1,024-row tiles and a last tile of the rows left. The two
+    longest (last tiles of 32 and 368 rows) in the pair form tile by tile:
+    the last tile against the plain walk from the same carries in, scores
+    and both carries out; the whole query equal to score_tiles_long and to
+    the int32 form. Then all 8 through score_tiles_long, counted (36
+    pair-form launches, 8 short tiles, no block scored again) and timed,
+    beside the same profiles padded with PAD_SCORE to whole tiles (the
+    walk before the cut). Returns the times and counts."""
+    from swimm_tpu_torch.alphabet import PAD_SCORE
+    from swimm_tpu_torch.models.profile import build_query_profile
+    from swimm_tpu_torch.ops import longquery as lq
+    from swimm_tpu_torch.ops import scorer
+    from swimm_tpu_torch.utils.synth import random_codes
+    k2 = "sw_ragged_qtile_kernel"
+    tm = lq.LONG_TILE_M
+    rng = np.random.default_rng(6)
+    host = [torch.from_numpy(build_query_profile(
+        random_codes(rng, n), "BLOSUM62", m_multiple))
+        for n in CANONICAL_LONG]
+    bounds = [scorer.profile_bounds(qp) for qp in host]
+    cut = [qp.cuda() for qp in host]
+    half = (*tiles.shape[:2], tiles.shape[2] // 2)
+    for n, qp, b in list(zip(CANONICAL_LONG, cut, bounds))[-2:]:
+        parts = lq.tile_profiles(qp, tm)
+        h = torch.zeros(half, dtype=torch.int32, device=tiles.device)
+        f = torch.full_like(h, lq.pair_word(-12))
+        best = None
+        for qp_tile in parts[:-1]:
+            out, h, f = lq.score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
+                                             10, 2, h, f, row_start)
+            best = out if best is None else torch.maximum(best, out)
+        h_in, f_in = lq.from_pairs(h), lq.from_pairs(f)
+        got = lq.score_qtile_pairs(tiles, outrow, n_rows, parts[-1], 10, 2,
+                                   h, f, row_start)
+        ref = lq.score_qtile_ref(tiles, outrow, n_rows, parts[-1], 10, 2,
+                                 h_in, f_in, row_start)
+        del h_in, f_in
+        e_last = max(max_err(got[0], ref[0]),
+                     max_err(lq.from_pairs(got[1]), ref[1]),
+                     max_err(lq.from_pairs(got[2]), ref[2]))
+        del ref
+        best = torch.maximum(best, got[0])
+        whole = lq.score_tiles_long(tiles, outrow, n_rows, qp, 10, 2,
+                                    row_start=row_start, bounds=b)
+        whole32 = lq.score_tiles_long_int32(tiles, outrow, n_rows, qp, 10, 2,
+                                            row_start=row_start)
+        e = max(e_last, max_err(whole, best), max_err(whole32, best))
+        errs[k2] = max(errs[k2], e)
+        top, limit = int(best.max()), lq.pair_limit(int(qp.max()))
+        if top >= limit:
+            raise AssertionError(f"{n}-aa query: a lane reached {top}, at or "
+                                 f"past the pair form's limit {limit}")
+        note(f"{k2} pair form, the {n}-aa query ({qp.shape[1]} rows: tiles "
+             f"{[p.shape[1] for p in parts]}), whole stream: the last tile "
+             f"vs plain from the same carries in, scores + both carries "
+             f"max_abs_err={e_last}; the whole query vs score_tiles_long "
+             f"and the int32 form max_abs_err={e} (top score {top})")
+        del got, best, whole, whole32
+
+    def run(qps):
+        for qp, b in zip(qps, bounds):
+            lq.score_tiles_long(tiles, outrow, n_rows, qp, 10, 2,
+                                row_start=row_start, bounds=b)
+
+    whole_tiles = [torch.cat([qp, torch.full(
+        (32, -(-qp.shape[1] // tm) * tm - qp.shape[1]), PAD_SCORE,
+        dtype=torch.int32)], dim=1).cuda() for qp in host]
+    counts = {}
+    for name, qps in (("cut", cut), ("whole_tiles", whole_tiles)):
+        before = (lq.score_qtile_pairs.launches, lq.score_qtile.launches,
+                  lq.score_tiles_long.short_tiles,
+                  lq.score_tiles_long.rescored_blocks)
+        run(qps)                                         # warm-up
+        torch.cuda.synchronize()
+        counts[name] = dict(zip(
+            ("pairs", "int32", "short_tiles", "rescored_blocks"),
+            (lq.score_qtile_pairs.launches - before[0],
+             lq.score_qtile.launches - before[1],
+             lq.score_tiles_long.short_tiles - before[2],
+             lq.score_tiles_long.rescored_blocks - before[3])))
+    want = {"cut": {"pairs": 36, "int32": 0, "short_tiles": 8,
+                    "rescored_blocks": 0},
+            "whole_tiles": {"pairs": 36, "int32": 0, "short_tiles": 0,
+                            "rescored_blocks": 0}}
+    if counts != want:
+        raise AssertionError(f"kernel 2 on the 8 canonical long queries: "
+                             f"{counts}, expected {want}")
+    ms = {"cut": [], "whole_tiles": []}
+    for _ in range(2):                                   # in turns
+        for name, qps in (("cut", cut), ("whole_tiles", whole_tiles)):
+            ms[name].append(cuda_ms(lambda: run(qps), reps=1))
+    rows = {"cut": sum(qp.shape[1] for qp in cut),
+            "whole_tiles": sum(qp.shape[1] for qp in whole_tiles)}
+    note(f"{k2} on the canonical batch's 8 queries past 2,048 rows "
+         f"({rows['cut']} rows; {rows['whole_tiles']} in whole tiles): "
+         f"{ms['cut']} ms cut, {ms['whole_tiles']} ms in whole tiles; "
+         f"counts {counts['cut']} (whole tiles {counts['whole_tiles']})")
+    return {"ms": ms, "rows": rows, "counts": counts}
 
 
 def compare_kernels(errs: dict) -> None:
@@ -2903,6 +3013,8 @@ def main(argv=None) -> int:
     note(f"sw_ragged_qtile_kernel one 1024-row tile over the whole stream: "
          f"pair form {k2_ms:.3f} ms, int32 form {k2_int32_ms:.3f} ms "
          f"(SASS a cell {k2_int32_load})")
+    k2_canonical = canonical_long_queries(tiles, outrow, n_rows, row_start,
+                                          config.m_multiple, errs)
     phases["full_size_k1_k2_s"] = time.perf_counter() - t
 
     # kernel 3 on the widest pack over the whole stream
@@ -3142,6 +3254,7 @@ def main(argv=None) -> int:
         "score_db": {"query0_s": db_short_s, "long5000_s": db_long_s,
                      "chunks": n_chunks},
         "kernel1_tail": k1_tail,
+        "kernel2_canonical_long": k2_canonical,
         "evalue_and_ladder": later,
         "stream": streamed,
         "serving": serving,

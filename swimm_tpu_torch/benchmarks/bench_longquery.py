@@ -5,8 +5,9 @@ A 5,478-aa titin-like query (synth_queries(1, [5478], seed=3)) against a
 synthetic DB of ``n_seqs`` (30,000) sequences (synth_db seed 4,
 homolog_frac 0.0005, packed at V=128 in a temporary directory) through
 engine.search: past 2,048 padded rows the query is cut into 1,024-row
-tiles, one launch of kernel 2 (sw_ragged_qtile_kernel) each (6 for 5,478
-aa), the H and F columns carried from tile to tile. A warm-up, then the
+tiles, the last cut to the rows left, one launch of kernel 2
+(sw_ragged_qtile_kernel) each (6 for 5,478 aa, the last of 368 rows), the
+H and F columns carried from tile to tile. A warm-up, then the
 best of 3 runs. Prints real-cell and padded GCUPS and the card.
 
 Run: python -m swimm_tpu_torch.benchmarks.bench_longquery [n_seqs]

@@ -7,10 +7,11 @@ host, its ``scorer.profile_bounds`` taken there, then one upload. ``score``
 scores it against a stream (tiles, outrow, n_rows, row_start): kernel 1
 (``scorer.score_tiles``, one launch) up to max_query_pad() padded rows,
 else kernel 2 (``longquery.score_tiles_long``, one launch per LONG_TILE_M
-query rows), each with the profile's bounds, so that its 16-bit guard
-(``scorer._pair_guard``) never waits for the device. The profile names the
-CUDA kernel (``kernel``, the ``engine.launch`` span's attr) and the query
-rows it dispatches (``rows``, what SearchMetrics.padded_cells counts).
+query rows, the last cut to the rows left), each with the profile's
+bounds, so that its 16-bit guard (``scorer._pair_guard``) never waits for
+the device. The profile names the CUDA kernel (``kernel``, the
+``engine.launch`` span's attr) and the query rows it dispatches (``rows``,
+what SearchMetrics.padded_cells counts).
 """
 
 from __future__ import annotations
@@ -29,15 +30,6 @@ def select_mode(m_pad: int) -> str:
     the query) up to max_query_pad() rows, else 'tiles_long' (kernel 2,
     query tiles). The JAX package's names for the two."""
     return "tiles" if m_pad <= scorer.max_query_pad() else "tiles_long"
-
-
-def dispatched_rows(mode: str, m_pad: int) -> int:
-    """Query rows the kernel actually dispatches for this mode — the
-    long-query path rounds m up to a LONG_TILE_M multiple; honest
-    padded-cell accounting counts what ran, not what was asked."""
-    if mode == "tiles_long":
-        return -(-m_pad // longquery.LONG_TILE_M) * longquery.LONG_TILE_M
-    return m_pad
 
 
 def _wrapper(mode: str):
@@ -74,7 +66,11 @@ class Profile:
 
     @property
     def rows(self) -> int:
-        return dispatched_rows(self.mode, self.qp.shape[1])
+        """The query rows its kernel dispatches: m_pad in both modes, since
+        kernel 2 cuts its last query tile to the rows left
+        (longquery.query_tiles; the JAX package's dispatched_rows counts
+        whole LONG_TILE_M tiles, which it walks)."""
+        return self.qp.shape[1]
 
 
 def score(stream, prof: Profile, gap_open: int,

@@ -1,12 +1,14 @@
 """Query-tiled scorers for long queries (counterpart of
 swimm_tpu/ops/longquery.py's ``score_tiles_long`` and ``score_chunk_long``).
 
-A query longer than max_query_pad() is padded to a multiple of tile_m rows
-with PAD_SCORE (pad rows never raise a score) and walked one query tile at a
-time: each tile is one launch of ``sw_ragged_qtile_kernel`` over the whole
-DB tile stream (``score_tiles_long``), or of ``sw_chunk_qtile_kernel`` over
-a list of rectangular chunks (``score_chunks_long``; ``score_chunk_long``
-is its one-chunk case); both run the carry form of the walk of
+A query longer than max_query_pad() is walked one query tile at a time
+(``query_tiles``: full tile_m-row tiles, then one last tile of the rows
+left, with no padding rows; the JAX package pads the last tile to tile_m
+rows with PAD_SCORE): each tile is one launch of ``sw_ragged_qtile_kernel``
+over the whole DB tile stream (``score_tiles_long``), or of
+``sw_chunk_qtile_kernel`` over a list of rectangular chunks
+(``score_chunks_long``; ``score_chunk_long`` is its one-chunk case); both
+run the carry form of the walk of
 csrc/sw_walk_hg.cuh, four workers to a DB block. The row above each tile
 travels between launches in two int32 carry streams aligned with the db
 codes — the real H of the previous tile's bottom row and the real F
@@ -21,13 +23,14 @@ two lanes a thread in 16-bit halves, the carries two streams of lane pairs,
 (``_pair_guard``, kernel 1's too): after the last tile, every block that
 may have wrapped is scored again over all query tiles in the int32 form
 (``score_tiles_long.rescored_blocks`` counts them).
+``score_tiles_long.short_tiles`` counts kernel 2's launches of a last tile
+shorter than the full ones.
 """
 
 from __future__ import annotations
 
 import torch
 
-from swimm_tpu_torch.alphabet import PAD_SCORE
 from swimm_tpu_torch.ops.scorer import (NEG, ChunkTable, _pair_guard,
                                         check_chunk, check_gaps,
                                         check_precision, check_stream,
@@ -50,18 +53,21 @@ def check_carries(codes, hcar, fcar, shape=None) -> None:
                              "shaped like the codes, on the same device")
 
 
-def pad_to_tiles(qp, tile_m: int):
-    """(profile padded with PAD_SCORE columns to a multiple of tile_m rows,
-    number of query tiles)."""
+def query_tiles(m: int, tile_m: int) -> list:
+    """(first row, end row) of each query tile of an m-row profile: the
+    ceil(m / tile_m) tiles are full tile_m-row tiles but the last, which
+    holds the m - (n_qt - 1) * tile_m rows left (a multiple of 8 where m
+    is)."""
     if tile_m <= 0 or tile_m % 8:
         raise ValueError(f"tile_m={tile_m} must be a positive multiple of 8")
-    m = qp.shape[1]
-    n_qt = -(-m // tile_m)
-    if n_qt * tile_m != m:
-        qp = torch.cat([qp, torch.full((qp.shape[0], n_qt * tile_m - m),
-                                       PAD_SCORE, dtype=torch.int32,
-                                       device=qp.device)], dim=1)
-    return qp, n_qt
+    return [(a, min(a + tile_m, m)) for a in range(0, m, tile_m)]
+
+
+def tile_profiles(qp, tile_m: int) -> list:
+    """qp's query tiles (query_tiles), each a contiguous (32, rows)
+    profile."""
+    return [qp[:, a:b].contiguous()
+            for a, b in query_tiles(qp.shape[1], tile_m)]
 
 
 def score_qtile_ref(tiles, outrow, n_rows: int, qp_tile, gap_open: int,
@@ -163,16 +169,15 @@ def score_tiles_long_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
     tile of qp through score_qtile. The fallback and the second pass of
     score_tiles_long; (n_rows, V) int32 exact scores."""
     check_gaps(gap_open, gap_extend)
-    qp, n_qt = pad_to_tiles(qp, tile_m or LONG_TILE_M)
-    tile_m = qp.shape[1] // n_qt
+    tile_m = tile_m or LONG_TILE_M
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
     hcar = torch.zeros(tiles.shape, dtype=torch.int32, device=tiles.device)
     fcar = torch.full(tiles.shape, NEG, dtype=torch.int32,
                       device=tiles.device)
     best = None
-    for qt in range(n_qt):
-        qp_tile = qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous()
+    for qp_tile in tile_profiles(qp, tile_m):
+        score_tiles_long.short_tiles += int(qp_tile.shape[1] < tile_m)
         out, hcar, fcar = score_qtile(tiles, outrow, n_rows, qp_tile,
                                       gap_open, gap_extend, hcar, fcar,
                                       row_start)
@@ -182,8 +187,8 @@ def score_tiles_long_int32(tiles, outrow, n_rows: int, qp, gap_open: int,
 
 def _long_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend, tile_m,
                 row_start):
-    """Every tile_m-row query tile of qp (padded to them) through
-    score_qtile_pairs, with no second pass: (n_rows, V) int32, exact below
+    """Every query tile of qp (query_tiles) through score_qtile_pairs,
+    with no second pass: (n_rows, V) int32, exact below
     pair_limit(max(qp))."""
     T, jt, V = tiles.shape
     half = (T, jt, V // 2)
@@ -192,8 +197,8 @@ def _long_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend, tile_m,
     fcar = torch.full(half, pair_word(-(gap_open + gap_extend)),
                       dtype=torch.int32, device=tiles.device)
     best = None
-    for qt in range(qp.shape[1] // tile_m):
-        qp_tile = qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous()
+    for qp_tile in tile_profiles(qp, tile_m):
+        score_tiles_long.short_tiles += int(qp_tile.shape[1] < tile_m)
         out, hcar, fcar = score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
                                             gap_open, gap_extend, hcar, fcar,
                                             row_start)
@@ -206,19 +211,18 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
                      tile_m: int | None = None,
                      row_start=None, bounds=None) -> torch.Tensor:
     """Score a whole-DB ragged tile stream against a query of ANY length
-    (qp (32, m), m % 8 == 0), one launch per tile_m-row query tile, behind
+    (qp (32, m), m % 8 == 0), one launch per query tile (query_tiles:
+    ceil(m / tile_m) of them, the last cut to the rows left), behind
     scorer._pair_guard: the pair form where it fits, then the int32 form
     over the blocks that may have wrapped; else the int32 form. bounds:
-    optional scorer.profile_bounds(qp), as score_tiles takes it (the
-    padding's PAD_SCORE columns move none of the three); without it they
-    come back from the profile's device.
+    optional scorer.profile_bounds(qp), as score_tiles takes it; without
+    it they come back from the profile's device.
 
     Returns (n_rows, V) int32 exact scores.
     """
     check_gaps(gap_open, gap_extend)
     check_precision(precision)
     tile_m = tile_m or LONG_TILE_M
-    qp, _ = pad_to_tiles(qp, tile_m)
     if row_start is None:
         row_start = row_starts(outrow, n_rows)
     return _pair_guard(
@@ -233,6 +237,7 @@ def score_tiles_long(tiles, outrow, n_rows: int, qp, gap_open: int,
 # the CUDA kernel it launches, through score_qtile_pairs and score_qtile
 score_tiles_long.kernel = "sw_ragged_qtile_kernel"
 score_tiles_long.rescored_blocks = 0   # DB blocks scored again in int32
+score_tiles_long.short_tiles = 0   # launches of a tile shorter than tile_m
 
 
 def score_chunk_qtile_ref(codes, qp_tile, gap_open: int, gap_extend: int,
@@ -311,16 +316,14 @@ def score_chunks_long(chunks, qp, gap_open: int, gap_extend: int,
                       precision: str = "f32", tile_m: int | None = None,
                       table: ChunkTable | None = None) -> list:
     """Score a list of (B, L, V) chunks against a query of ANY length (qp
-    (32, m), m % 8 == 0): one launch per tile_m-row query tile over all the
-    chunks. The carries of all chunks are two flat int32 buffers allocated
+    (32, m), m % 8 == 0): one launch per query tile (query_tiles) over all
+    the chunks. The carries of all chunks are two flat int32 buffers allocated
     once per call (8 bytes per code byte).
 
     Returns the list of (B_i, V) int32 exact scores.
     """
     check_gaps(gap_open, gap_extend)
     check_precision(precision)
-    qp, n_qt = pad_to_tiles(qp, tile_m or LONG_TILE_M)
-    tile_m = qp.shape[1] // n_qt
     if table is None:
         table = ChunkTable(chunks)
     hcars = table.carry_views(torch.zeros(
@@ -328,8 +331,7 @@ def score_chunks_long(chunks, qp, gap_open: int, gap_extend: int,
     fcars = table.carry_views(torch.full(
         (table.numel,), NEG, dtype=torch.int32, device=table.device))
     best = None
-    for qt in range(n_qt):
-        qp_tile = qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous()
+    for qp_tile in tile_profiles(qp, tile_m or LONG_TILE_M):
         outs, hcars, fcars = score_chunks_qtile(
             chunks, qp_tile, gap_open, gap_extend, hcars, fcars, table)
         best = outs if best is None else [torch.maximum(b, o)

@@ -174,6 +174,46 @@ def chunk_list(seed, qlen, shapes, V=8):
 THREE = ((2, 96), (1, 32), (3, 64))
 
 
+@pytest.mark.parametrize("n_full,last", [
+    pytest.param(n_full, last, id=f"{n_full}x64+{last}")
+    for n_full in (1, 2) for last in (8, 16, 32, 56)])
+def test_chunks_long_short_last_tile_equals_one_pass(n_full, last,
+                                                     monkeypatch):
+    # one or two full 64-row tiles, then a last tile of 8, 16, 32 or
+    # tile_m - 8 rows: chained through random carries, the one-pass scores
+    # and outgoing carries; score_chunks_long over two chunks launches
+    # exactly those tiles and gives the one-pass scores
+    tile_m = 64
+    rng = np.random.default_rng(81)
+    _, qp, chunks = chunk_list(81, n_full * tile_m + last, THREE[:2])
+    qpt = torch.from_numpy(qp)
+    assert qpt.shape[1] == n_full * tile_m + last
+    for codes in chunks:
+        c = torch.from_numpy(codes)
+        h = torch.from_numpy(rng.integers(0, 6, c.shape, dtype=np.int32))
+        f = torch.from_numpy(rng.integers(-40, 10, c.shape, dtype=np.int32))
+        s_one, h_one, f_one = tlong.score_chunk_qtile_ref(c, qpt, 10, 2, h,
+                                                          f)
+        best, hc, fc = None, h, f
+        for qp_tile in tlong.tile_profiles(qpt, tile_m):
+            out, hc, fc = tlong.score_chunk_qtile(c, qp_tile, 10, 2, hc, fc)
+            best = out if best is None else torch.maximum(best, out)
+        assert torch.equal(best, s_one)
+        assert torch.equal(hc, h_one) and torch.equal(fc, f_one)
+    seen, inner = [], tlong.score_chunks_qtile
+
+    def spy(chunks, qp_tile, *a, **k):
+        seen.append(qp_tile.shape[1])
+        return inner(chunks, qp_tile, *a, **k)
+
+    monkeypatch.setattr(tlong, "score_chunks_qtile", spy)
+    tc = [torch.from_numpy(c) for c in chunks]
+    got = tlong.score_chunks_long(tc, qpt, 10, 2, tile_m=tile_m)
+    assert seen == [tile_m] * n_full + [last]
+    for g, c in zip(got, chunks):
+        assert np.array_equal(g.numpy(), port_chunk(c, qp, 10, 2))
+
+
 @pytest.mark.parametrize("seed,qlen,gaps,V,tile_m,shapes,vs_jax", [
     pytest.param(61, 90, (10, 2), 8, 32, THREE, True, id="61-90-gaps0"),
     pytest.param(62, 95, (10, 2), 8, 32, THREE, True, id="62-95-gaps1"),

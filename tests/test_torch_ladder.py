@@ -203,9 +203,9 @@ def test_search_ladder_matches_exact_and_jax(long_world, evalue):
             assert [h.evalue for h in r.hits] == [
                 float(model.evalue(h.score, pt.lengths[h.sorted_idx]))
                 for h in r.hits]
-    else:        # padded rows: the groups' m_pad, the long query's tiles
+    else:        # padded rows: the groups' m_pad, the long query's too
         lanes = sum(ch.n_blocks * ch.L * ch.V for ch in pt.chunks)
-        assert gm.padded_cells == lanes * (48 + 3072 + 64 + 112)
+        assert gm.padded_cells == lanes * (48 + 2064 + 64 + 112)
 
 
 def test_search_fused_batch_ladder_only_long_queries(long_world):
@@ -216,7 +216,7 @@ def test_search_fused_batch_ladder_only_long_queries(long_world):
     exact, _ = engine.search_fused_batch(pt, queries[1:2],
                                          SearchConfig(top_k=4), "cpu")
     assert [(h.score, h.sorted_idx) for h in got[0]] == \
-           [(h.score, h.sorted_idx) for h in exact[0]] and rows == 3072
+           [(h.score, h.sorted_idx) for h in exact[0]] and rows == 2064
     # no group at all: no candidates (swimm_tpu raises IndexError here)
     assert ladder.topk_db_adaptive_serving(pt, [], 4, 10, 2,
                                            device="cpu")[0] == []

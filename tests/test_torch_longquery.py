@@ -12,10 +12,12 @@ from swimm_tpu.matrices import get_matrix
 from swimm_tpu.models.profile import build_query_profile
 from swimm_tpu.ops import longquery, reference
 from swimm_tpu.utils.synth import mutate, random_codes
+from swimm_tpu_torch import SearchConfig
 from swimm_tpu_torch.alphabet import ALPHABET, PAD_CODE
+from swimm_tpu_torch.fasta import FastaRecord
 from swimm_tpu_torch.matrices import get_matrix as t_matrix
 from swimm_tpu_torch.models.profile import build_query_profile as t_profile
-from swimm_tpu_torch.ops import cref
+from swimm_tpu_torch.ops import cref, lanes
 from swimm_tpu_torch.ops import longquery as tlong
 from swimm_tpu_torch.ops import scorer
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -131,17 +133,15 @@ def test_qtile_chain_scores_and_carries_equal_one_pass(tile_m):
     # from the incoming F): the tiles chained give the one-pass scores AND
     # the one-pass outgoing carries
     _, qp, blocks, tiles, outrow = _case(31, 200, [32, 96, 64])
-    qpp, n_qt = tlong.pad_to_tiles(torch.from_numpy(qp), tile_m)
+    qpt = torch.from_numpy(qp)
     h, f, _ = _carries(np.random.default_rng(37), tiles, outrow, {1: 3000})
     t, o = torch.from_numpy(tiles), torch.from_numpy(outrow)
-    s_one, h_one, f_one = tlong.score_qtile(t, o, len(blocks), qpp, 10, 2,
+    s_one, h_one, f_one = tlong.score_qtile(t, o, len(blocks), qpt, 10, 2,
                                             h, f)
     best, hc, fc = None, h, f
-    for qt in range(n_qt):
-        out, hc, fc = tlong.score_qtile(
-            t, o, len(blocks),
-            qpp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), 10, 2, hc,
-            fc)
+    for qp_tile in tlong.tile_profiles(qpt, tile_m):
+        out, hc, fc = tlong.score_qtile(t, o, len(blocks), qp_tile, 10, 2,
+                                        hc, fc)
         best = out if best is None else torch.maximum(best, out)
     assert torch.equal(best, s_one)
     assert torch.equal(hc, h_one) and torch.equal(fc, f_one)
@@ -203,15 +203,16 @@ def _w_run_case(rng):
     return q, t_matrix("BLOSUM62"), blocks, 1024, scores
 
 
-def _big_entry_case(rng):
+def _big_entry_case(rng, tail=30):
     """A matrix whose A/A entry is 1,000 (T = 31,767), R/R 100 and N/N 1,
-    over four blocks and 18 query tiles of 8 rows: lanes that score 33,000
-    (33 A: past 32,767), 31,766 (31 A, 7 R and 66 N: T - 1) and 31,767
-    (T), each in a block of its own, and a block of ordinary lanes only."""
+    over four blocks and 18 query tiles of 8 rows (107 + tail residues):
+    lanes that score 33,000 (33 A: past 32,767), 31,766 (31 A, 7 R and 66
+    N: T - 1) and 31,767 (T), each in a block of its own, and a block of
+    ordinary lanes only."""
     mat = t_matrix("BLOSUM62").copy()
     mat[0, 0], mat[1, 1], mat[2, 2] = 1000, 100, 1
     q = np.concatenate([[0] * 33, [1] * 7, [2] * 67,
-                        rng.integers(3, 20, 30)]).astype(np.uint8)
+                        rng.integers(3, 20, tail)]).astype(np.uint8)
     planted = {(0, 3): [0] * 33, (1, 40): [0] * 31 + [1] * 7 + [2] * 66,
                (2, 63): [0] * 31 + [1] * 7 + [2] * 67}
     blocks = _blocks(rng, planted, 4, 128)
@@ -222,15 +223,13 @@ def _big_entry_case(rng):
 def _pair_form_alone(tiles, outrow, n_rows, qp, tile_m, go=10, ge=2):
     """Every query tile in the pair form, chained through its carries, and
     no second pass: the maximum over tiles."""
-    qp, n_qt = tlong.pad_to_tiles(qp, tile_m)
     half = (*tiles.shape[:2], tiles.shape[2] // 2)
     h = torch.zeros(half, dtype=torch.int32)
     f = torch.full(half, tlong.pair_word(-(go + ge)), dtype=torch.int32)
     best = None
-    for qt in range(n_qt):
-        out, h, f = tlong.score_qtile_pairs(
-            tiles, outrow, n_rows,
-            qp[:, qt * tile_m:(qt + 1) * tile_m].contiguous(), go, ge, h, f)
+    for qp_tile in tlong.tile_profiles(qp, tile_m):
+        out, h, f = tlong.score_qtile_pairs(tiles, outrow, n_rows, qp_tile,
+                                            go, ge, h, f)
         best = out if best is None else torch.maximum(best, out)
     return best
 
@@ -335,3 +334,150 @@ def test_lane_pairs_round_trip_and_the_bounds():
     for args in ((64, 16384, 1, -4, 11), (64, 10, 2, -32769, 11),
                  (64, 10, 2, -4, 32756), (160, 10, 2, -4, 11)):
         assert not scorer.pair_form_fits(*args)
+
+
+# ---- the last query tile cut to the query's own rows ----
+
+# the canonical batch's queries past 2,048 padded rows (aa)
+CANONICAL_LONG = (2504, 3005, 3564, 4061, 4548, 4743, 5147, 5478)
+
+
+@pytest.mark.parametrize("m,tile_m", [
+    (2064, 1024), (3072, 1024), (5152, 1024), (5488, 1024), (16, 1024),
+    (8, 8), (200, 32), (200, 72), (200, 104), (192, 64)])
+def test_query_tiles_are_full_but_the_last(m, tile_m):
+    tiles = tlong.query_tiles(m, tile_m)
+    rows = [b - a for a, b in tiles]
+    assert len(tiles) == -(-m // tile_m)
+    assert sum(rows) == m and tiles[0][0] == 0 and tiles[-1][1] == m
+    assert all(b == a for (_, b), (a, _) in zip(tiles, tiles[1:]))
+    assert rows[:-1] == [tile_m] * (len(rows) - 1)
+    assert 0 < rows[-1] <= tile_m and rows[-1] % 8 == 0
+    qp = torch.arange(32 * m, dtype=torch.int32).reshape(32, m)
+    parts = tlong.tile_profiles(qp, tile_m)
+    assert [p.shape[1] for p in parts] == rows
+    assert all(p.is_contiguous() for p in parts)
+    assert torch.equal(torch.cat(parts, dim=1), qp)
+    for bad in (0, -8, 12):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tlong.query_tiles(m, bad)
+
+
+def test_query_tiles_of_the_canonical_long_queries():
+    # at m_multiple 16: 36 launches as with whole tiles, the last tiles
+    # 464-992 rows (32 and 368 for 5,147 and 5,478 aa), 33,104 rows in all
+    # against 36,864 whole-tile rows
+    m_pads = [-(-n // 16) * 16 for n in CANONICAL_LONG]
+    tiles = [tlong.query_tiles(m, tlong.LONG_TILE_M) for m in m_pads]
+    assert sum(map(len, tiles)) == 36
+    assert [t[-1][1] - t[-1][0] for t in tiles] == [464, 960, 496, 992,
+                                                    464, 656, 32, 368]
+    assert sum(m_pads) == 33104
+    assert sum(len(t) for t in tiles) * tlong.LONG_TILE_M == 36864
+
+
+def test_kernel2_profile_dispatches_its_padded_rows():
+    # Profile.rows (what SearchMetrics.padded_cells counts) is what runs:
+    # m_pad in kernel 2's mode as in kernel 1's
+    rng = np.random.default_rng(71)
+    config = SearchConfig()
+    for n, m_pad, mode in ((5147, 5152, "tiles_long"),
+                           (2050, 2064, "tiles_long"),
+                           (448, 448, "tiles")):
+        prof = lanes.Profile.build(FastaRecord("q", random_codes(rng, n)),
+                                   config)
+        assert (prof.qp.shape[1], prof.mode) == (m_pad, mode)
+        assert prof.rows == m_pad
+
+
+def _heights(monkeypatch, name):
+    """Spy on tlong.<name> (a one-tile launch): the rows of each tile."""
+    seen, inner = [], getattr(tlong, name)
+
+    def spy(tiles, outrow, n_rows, qp_tile, *a, **k):
+        seen.append(qp_tile.shape[1])
+        return inner(tiles, outrow, n_rows, qp_tile, *a, **k)
+
+    monkeypatch.setattr(tlong, name, spy)
+    return seen
+
+
+SHORT_LAST = [pytest.param(n_full, last, id=f"{n_full}x64+{last}")
+              for n_full in (1, 2) for last in (8, 16, 32, 56)]
+
+
+@pytest.mark.parametrize("n_full,last", SHORT_LAST)
+def test_short_last_tile_equals_one_pass(n_full, last, monkeypatch):
+    # one or two full 64-row tiles, then a last tile of 8, 16, 32 or
+    # tile_m - 8 rows: chained through their carries (random ones in, a
+    # lane scored from its incoming F) in the int32 form and in the pair
+    # form, the one-pass scores and outgoing carries; score_tiles_long
+    # (the pair form) and score_tiles_long_int32 launch exactly those
+    # tiles and give the one-pass scores, one short tile counted each
+    tile_m = 64
+    _, qp, blocks, tiles, outrow = _case(59, n_full * tile_m + last,
+                                         [32, 96, 64], V=64)
+    qpt, n = torch.from_numpy(qp), len(blocks)
+    want = [tile_m] * n_full + [last]
+    h, f, _ = _carries(np.random.default_rng(61), tiles, outrow, {6: 900})
+    t, o = torch.from_numpy(tiles), torch.from_numpy(outrow)
+    s_one, h_one, f_one = tlong.score_qtile(t, o, n, qpt, 10, 2, h, f)
+    best, hc, fc = None, h, f
+    bestp, hp, fp = None, tlong.to_pairs(h), tlong.to_pairs(f)
+    for qp_tile in tlong.tile_profiles(qpt, tile_m):
+        out, hc, fc = tlong.score_qtile(t, o, n, qp_tile, 10, 2, hc, fc)
+        outp, hp, fp = tlong.score_qtile_pairs(t, o, n, qp_tile, 10, 2, hp,
+                                               fp)
+        best = out if best is None else torch.maximum(best, out)
+        bestp = outp if bestp is None else torch.maximum(bestp, outp)
+    assert torch.equal(best, s_one) and torch.equal(bestp, s_one)
+    assert torch.equal(hc, h_one) and torch.equal(fc, f_one)
+    assert torch.equal(tlong.from_pairs(hp), h_one)
+    assert torch.equal(tlong.from_pairs(fp), f_one)
+    assert int(s_one[:, 6].min()) >= 900
+
+    one = scorer.score_tiles_ref(t, o, n, qpt, 10, 2)
+    pairs = _heights(monkeypatch, "score_qtile_pairs")
+    int32 = _heights(monkeypatch, "score_qtile")
+    before = tlong.score_tiles_long.short_tiles
+    assert torch.equal(tlong.score_tiles_long(t, o, n, qpt, 10, 2,
+                                              tile_m=tile_m), one)
+    assert (pairs, int32) == (want, [])
+    assert tlong.score_tiles_long.short_tiles - before == 1
+    assert torch.equal(tlong.score_tiles_long_int32(t, o, n, qpt, 10, 2,
+                                                    tile_m=tile_m), one)
+    assert (pairs, int32) == (want, want)
+    assert tlong.score_tiles_long.short_tiles - before == 2
+
+
+@pytest.mark.parametrize("tile_m,last", [
+    pytest.param(tm, last, id=f"{128 // tm}x{tm}+{last}")
+    for tm in (64, 128) for last in (8, 16, 32, tm - 8)])
+def test_short_last_tile_rescores_every_lane_that_could_wrap(tile_m, last,
+                                                             monkeypatch):
+    # lanes past pair_limit with 128 // tile_m full tiles and a short last
+    # one: the pair form over those tiles, then the flagged blocks again in
+    # int32 over the same tiles; equal to the C oracle
+    rng = np.random.default_rng(67)
+    m = 128 + last
+    q, mat, blocks, _, _ = _big_entry_case(rng, tail=m - 107)
+    qp = torch.from_numpy(t_profile(q, mat, m_multiple=8))
+    assert qp.shape[1] == m
+    tiles, outrow = _stream(blocks)
+    n_rows, V = len(blocks), blocks[0].shape[1]
+    exp = cref.sw_score_many(q, _lane_seqs(blocks), mat, 10, 2).reshape(
+        n_rows, V)
+    limit = tlong.pair_limit(int(qp.max()))
+    flagged = int((exp >= limit).any(axis=1).sum())
+    assert exp[0, 3] == 33000 and 0 < flagged < n_rows
+    want = [tile_m] * (128 // tile_m) + [last]
+    pairs = _heights(monkeypatch, "score_qtile_pairs")
+    int32 = _heights(monkeypatch, "score_qtile")
+    before = (tlong.score_tiles_long.rescored_blocks,
+              tlong.score_tiles_long.short_tiles)
+    got = tlong.score_tiles_long(tiles, outrow, n_rows, qp, 10, 2,
+                                 tile_m=tile_m).numpy()
+    assert np.array_equal(got, exp)
+    assert (pairs, int32) == (want, want)
+    assert (tlong.score_tiles_long.rescored_blocks - before[0],
+            tlong.score_tiles_long.short_tiles - before[1]) == (flagged, 2)

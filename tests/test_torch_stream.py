@@ -48,8 +48,8 @@ def world(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def long_world(tmp_path_factory):
-    """A 2,050-aa query (2,064 padded rows: kernel 2's mode, three 1,024-row
-    tiles) beside a short one, against 40 short sequences."""
+    """A 2,050-aa query (2,064 padded rows: kernel 2's mode, two 1,024-row
+    tiles and one of 16) beside a short one, against 40 short sequences."""
     d = tmp_path_factory.mktemp("stream_long")
     rng = np.random.default_rng(22)
     long_q = FastaRecord("long", random_codes(rng, 2050))
@@ -160,7 +160,7 @@ def test_stream_long_query_matches_jax(long_world, merge):
     assert _hits(got) == _hits(_jsearch(pj, queries, **cfg))
     assert got[0].hits[0].title == "hom planted_homolog"
     lanes = sum(ch.n_blocks * ch.L * ch.V for ch in pt.chunks)
-    assert m.padded_cells == lanes * (3072 + 32)
+    assert m.padded_cells == lanes * (2064 + 32)
 
 
 def test_stream_padded_cells_count_the_fill(world):

@@ -307,10 +307,9 @@ def main() -> int:
     pre = (cs.LONG_LEN - len(seg)) // 2
     long_codes = np.concatenate([random_codes(lrng, pre), seg, random_codes(
         lrng, cs.LONG_LEN - pre - len(seg))])
-    qp_l, n_qt = longquery.pad_to_tiles(torch.from_numpy(
+    qts = longquery.tile_profiles(torch.from_numpy(
         build_query_profile(long_codes, "BLOSUM62", 16)).cuda(), 1024)
-    qts = [qp_l[:, i * 1024:(i + 1) * 1024].contiguous()
-           for i in range(n_qt)]
+    n_qt = len(qts)
     qp1 = torch.from_numpy(build_query_profile(queries[0].codes, "BLOSUM62",
                                                16)).cuda()
     m1 = qp1.shape[1]
