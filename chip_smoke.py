@@ -56,7 +56,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
      the card-filling 33 tiles and at a size that ends inside a block;
      narrow_kernel in int32, int16x2 and int8x4 at steps 0, 1, 8 and 33 on
      the JAX probe's input, random values of the whole type and values at
-     its edges that wrap (--kernels-only stops here);
+     its edges that wrap; last sw_align_kernel (csrc/sw_align.cu, built on
+     its first use as a server builds it) against ops.traceback.sw_align
+     field by field and the C oracle's score on seeded, homologous and
+     tie-heavy pairs (identical, repeats, optima through gaps, one residue,
+     empty, score 0) under BLOSUM62, PAM30 and BLOSUM45 at gaps 10/2, 0/3,
+     0/0 and 5/0, one launch each, and again under a 2 KB workspace cap
+     (several launches, the same alignments) (--kernels-only stops here);
   3. the main path at Swiss-Prot scale: a 570,000-sequence synthetic DB
      (seed 2, homolog_frac 0.0005), 20 queries of 100-500 aa (lengths from
      rng seed 0, synth_queries seed 1), BLOSUM62 10/2, top_k 16 — packed,
@@ -152,13 +158,23 @@ exactly and apart from the kernels line:
      sampled beside three back-to-back searches of the 20), 10 sequential
      one-query requests
      (p50 and max latency), top_k 4 and 100 equal to the prefix of a
-     direct search, align and format "m8" for 2 queries at top 2; an HTTP
+     direct search, align and format "m8" for 2 queries at top 2 (aligned
+     on the card, equal to sw_align); an HTTP
      server: the 5,000-aa query (kernel 2) equal to phase 4, GET /health
      (timed before and after it) and /info; a streaming server (db_stream=True) on the memmapped DB of
      phases 13-16 equal to the resident hits; the C oracle (ops/cref.py,
      --selfcheck's) over every hit of the 20; one `python -m
      swimm_tpu_torch serve --warm 448` stdio subprocess (two requests equal
      to phase 3, a shutdown, exit 0) and one `info` subprocess.
+Then alignments on the card (ops/align.py), before phase 8:
+ 22. one 16-hit request (phase 3's median query) through align_hits,
+     equal to sw_align hit by hit; the 5,478-aa query against 16 subjects
+     of 6,000 aa, its m8 rows equal to swbench/align_reference.py's and its
+     scores to the C oracle; 64 queries of 6,000 aa with 16 hits of 6,000
+     aa each (18 MB of backpointers a pair), one launch per group under
+     the workspace cap, every path scoring its DP's maximum, 16 scores
+     against the oracle and 4 rows against the plain reference; the
+     card's time of each (CUDA events).
 Then distribution (parallel/), before phase 8, on the same DBs, each run
 after a warm-up with its launches counted exactly:
  18. (a) sharded_search on make_mesh() (one shard per visible card; no
@@ -1953,6 +1969,14 @@ def serving_paths(db_dir, packed, spacked, queries, results, long_q,
         if len(m8["m8"]) != 4 or any(len(x.split("\t")) != 12
                                      for x in m8["m8"]):
             raise AssertionError(f"m8 rows: {m8['m8']}")
+        from swimm_tpu_torch.ops.traceback import sw_align
+        for r, i in zip(al["results"], two):     # aligned on the card
+            for hj, h in zip(r["hits"], results[i].hits):
+                a = sw_align(queries[i].codes, packed.seq_codes(h.sorted_idx))
+                if (hj["alignment"]["q_aln"], hj["alignment"]["d_aln"]) != (
+                        a.q_aln, a.d_aln):
+                    raise AssertionError("the card's alignment differs from "
+                                         "sw_align's")
         out["align_m8_ok"] = True
     finally:
         tcp.shutdown()
@@ -2331,6 +2355,240 @@ def sharded_paths(db_dir, packed, spacked, dev_db, queries, results, long_q,
     return out
 
 
+def align_cases(rng) -> list:
+    """Phase 2's alignment pairs (codes): seeded random and homologous
+    pairs, and pairs full of ties: identical sequences, low-complexity
+    repeats, optima reached through gaps, one-residue and empty
+    sequences, and a pair that scores 0 (an empty path)."""
+    from swimm_tpu_torch.alphabet import encode
+    from swimm_tpu_torch.utils.synth import mutate, random_codes
+    cases = []
+    for _ in range(8):
+        q = random_codes(rng, int(rng.integers(1, 120)))
+        cases.append((q, random_codes(rng, int(rng.integers(1, 120)))))
+        h = mutate(rng, q, sub_rate=0.2, indel_rate=0.08)
+        cases.append((q, np.concatenate([random_codes(rng, 7), h,
+                                         random_codes(rng, 5)])))
+    q = random_codes(rng, 90)
+    for a, b in [(q, q), (q[:1], q), (q, q[40:41]), (q[:0], q), (q, q[:0]),
+                 ("A", "C"), ("W", "W"), ("A" * 40, "A" * 55),
+                 ("ACACACACACACAC", "CACACACA"), ("KKKKRKKKKRKKKK", "KRKRK"),
+                 ("WWWWWGGGGGWWWWW", "WWWWWWWWWW"),
+                 ("WWWWWWWWWW", "WWWWWGGGGGWWWWW"),
+                 ("WWWWGWWWWGWWWW", "WWWWWWWWWWW"),
+                 ("LLLLLLLLLLLLLLLL", "LLLLAAAALLLL"),
+                 ("HHHHCCCCHHHHCCCCHHHH", "HHHHHHHHCCCCCCCC"),
+                 # the diagonal and E tie on the path at 10/2
+                 ("AHESADKWSTGNSRLNCNVT", "SMLDIHSADKSFTFGNSEEMCKNVTESS"),
+                 ("ISNFEEQCRVQTTAGPVYEVIRDGVLN",
+                  "NGWIFNFEMEMQCRVQKSGHFVYSFKDIVLFNRYY")]:
+        cases.append((encode(a) if isinstance(a, str) else a,
+                      encode(b) if isinstance(b, str) else b))
+    return cases
+
+
+def compare_align() -> None:
+    """Phase 2's alignment part: sw_align_kernel (csrc/sw_align.cu, built
+    here on its first use, as a server builds it) against
+    ops.traceback.sw_align field by field and against the C oracle's
+    score, on align_cases under three matrices and the gaps 10/2, 0/3, 0/0
+    and 5/0, in one launch a (matrix, gaps); then the same pairs with the
+    workspace cap cut so that they take several launches."""
+    import dataclasses
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.ops import _build, align, cref
+    from swimm_tpu_torch.ops.traceback import sw_align
+    from swimm_tpu_torch.utils import metrics
+    t = time.perf_counter()
+    align.kernels()
+    for line in _build.BUILD_LOGS.get("sw_align", "").splitlines():
+        if any(w in line for w in ("registers", "spill", "error")):
+            note(f"ptxas sw_align: {line.strip()}")
+    note(f"sw_align built in {time.perf_counter() - t:.1f} s")
+    cases = align_cases(np.random.default_rng(24))
+    n, n_gapped = 0, 0
+    for matrix in ("BLOSUM62", "PAM30", "BLOSUM45"):
+        for go, ge in ((10, 2), (0, 3), (0, 0), (5, 0)):
+            before = metrics.counter("align.launches")
+            got = align.align_pairs(cases, matrix, go, ge, device="cuda")
+            if metrics.counter("align.launches") - before != 1:
+                raise AssertionError("expected one sw_align launch")
+            sub = get_matrix(matrix)
+            for (q, d), a in zip(cases, got):
+                want = sw_align(q, d, matrix=matrix, gap_open=go,
+                                gap_extend=ge)
+                if dataclasses.asdict(a) != dataclasses.asdict(want):
+                    raise AssertionError(
+                        f"sw_align_kernel {matrix} {go}/{ge} m={len(q)} "
+                        f"n={len(d)}: {a} != {want}")
+                if a.score != cref.sw_score(q, d, sub, go, ge):
+                    raise AssertionError("sw_align_kernel score != C oracle")
+                n += 1
+                n_gapped += a.n_gaps > 0
+    if n_gapped == 0:
+        raise AssertionError("no case took a gap")
+    cap = align.WORKSPACE_BYTES
+    align.WORKSPACE_BYTES = 2048
+    try:
+        before = metrics.counter("align.launches")
+        split = align.align_pairs(cases, device="cuda")
+        n_launch = metrics.counter("align.launches") - before
+    finally:
+        align.WORKSPACE_BYTES = cap
+    whole = align.align_pairs(cases, device="cuda")
+    if split != whole or n_launch < 4:
+        raise AssertionError(f"a cut workspace changed the alignments "
+                             f"({n_launch} launches)")
+    note(f"sw_align_kernel: {n} pairs equal sw_align and the C oracle "
+         f"({n_gapped} gapped); under a 2 KB cap {n_launch} launches, "
+         f"equal")
+
+
+def align_paths(packed, queries, results, config) -> dict:
+    """Phase 22, alignments at full size: one 16-hit request's alignments
+    (phase 3's median query) through ops.align.align_hits, equal to
+    sw_align on the host; the 5,478-aa query against 16 subjects of 6,000
+    aa (half of them its homologs), equal to the plain reference
+    (swbench/align_reference.py) in every m8 column and to the C oracle;
+    then the worst dispatch the server can meet, 64 queries of 6,000 aa
+    with 16 hits of 6,000 aa each, over the workspace cap (one launch per
+    group), every path's score equal to the one its strings give, 16
+    against the C oracle and 4 against the plain reference. Each timed
+    on the card (CUDA events around the call)."""
+    import dataclasses
+    from swbench import align_reference
+    from swimm_tpu_torch.alphabet import ALPHABET, decode
+    from swimm_tpu_torch.formats import m8_rows
+    from swimm_tpu_torch.matrices import get_matrix
+    from swimm_tpu_torch.models.engine import Hit, QueryResult
+    from swimm_tpu_torch.ops import align, cref
+    from swimm_tpu_torch.ops.traceback import sw_align
+    from swimm_tpu_torch.utils import metrics
+    from swimm_tpu_torch.utils.synth import mutate, random_codes
+    t0 = time.perf_counter()
+    out = {}
+    sub = get_matrix("BLOSUM62")
+
+    def timed_call(fn):
+        fn()                                          # warm
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = metrics.counter("align.launches")
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return res, a.elapsed_time(b), metrics.counter(
+            "align.launches") - before
+
+    def ref_rows(qs, subjects):
+        letters = [[np.frombuffer(decode(s).encode(), np.uint8)
+                    for s in subs] for subs in subjects]
+        got = align_reference.align(
+            [np.frombuffer(decode(q).encode(), np.uint8) for q in qs],
+            letters, 10, 2, device="cuda")
+        return [[align_reference.m8_row("q", f"S{k:07d}", c)
+                 for k, c in enumerate(g)] for g in got]
+
+    def rows(q, subs, al):
+        r = QueryResult("q", len(q), [Hit(k + 1, a.score, k, k, f"S{k:07d}")
+                                      for k, a in enumerate(al)])
+        return m8_rows(r, al)
+
+    idx = {c: k for k, c in enumerate(ALPHABET)}
+
+    def own_score(a) -> int:
+        """The path's score from its strings (gaps: open + extend)."""
+        s, prev = 0, None
+        for x, y in zip(a.q_aln, a.d_aln):
+            if x == "-" or y == "-":
+                g = "q" if x == "-" else "d"
+                s -= 12 if prev != g else 2
+                prev = g
+            else:
+                s += int(sub[idx[x], idx[y]])
+                prev = None
+        return s
+
+    # one 16-hit request: the median query of phase 3
+    mid = sorted(range(len(queries)), key=lambda i: queries[i].length)[
+        len(queries) // 2]
+    one = [queries[mid]]
+    got, ms, n_l = timed_call(lambda: align.align_hits(
+        [results[mid]], one, packed, config, device="cuda"))
+    for h, a in zip(results[mid].hits, got[0]):
+        want = sw_align(one[0].codes, packed.seq_codes(h.sorted_idx))
+        if dataclasses.asdict(a) != dataclasses.asdict(want):
+            raise AssertionError(f"hit {h.title}: {a} != {want}")
+    cells = sum(one[0].length * int(packed.lengths[h.sorted_idx])
+                for h in results[mid].hits)
+    out["request16"] = {"ms": ms, "launches": n_l, "cells": cells,
+                        "query_aa": one[0].length}
+    note(f"one 16-hit request ({one[0].length} aa, {cells} cells): "
+         f"{ms:.3f} ms, {n_l} launch, equal to sw_align")
+
+    # the 5,478-aa query against 6,000-aa subjects
+    rng = np.random.default_rng(5478)
+    q = random_codes(rng, 5478)
+    subs = []
+    for k in range(16):
+        if k % 2 == 0:
+            h = mutate(rng, q, sub_rate=0.1 + 0.02 * k, indel_rate=0.02)[:6000]
+            s = np.concatenate([random_codes(rng, (6000 - len(h)) // 2), h])
+            subs.append(np.concatenate([s, random_codes(rng, 6000 - len(s))]))
+        else:
+            subs.append(random_codes(rng, 6000))
+    pairs = [(q, s) for s in subs]
+    got, ms, n_l = timed_call(lambda: align.align_pairs(pairs,
+                                                        device="cuda"))
+    if rows(q, subs, got) != ref_rows([q], [subs])[0]:
+        raise AssertionError("5,478 x 6,000: m8 rows differ from the plain "
+                             "reference")
+    want = cref.sw_score_many(q, subs, sub, 10, 2)
+    if [a.score for a in got] != list(want):
+        raise AssertionError("5,478 x 6,000: scores differ from the oracle")
+    out["q5478"] = {"ms": ms, "launches": n_l, "cells": 5478 * 6000 * 16}
+    note(f"5,478 aa x 16 subjects of 6,000: {ms:.1f} ms, {n_l} launch; m8 "
+         f"rows equal the plain reference, scores the C oracle")
+
+    # 64 queries of 6,000 aa, 16 hits of 6,000 each: over the cap
+    qs = [random_codes(rng, 6000) for _ in range(64)]
+    pairs = []
+    for k, qq in enumerate(qs):
+        for j in range(16):
+            pairs.append((qq, mutate(rng, qq, 0.3, 0.02)[:6000] if j == 0
+                          else random_codes(rng, 6000)))
+    n_groups = len(align.groups([align.workspace_bytes(len(a), len(b))
+                                 for a, b in pairs]))
+    got, ms, n_l = timed_call(lambda: align.align_pairs(pairs,
+                                                        device="cuda"))
+    if n_l != n_groups or n_groups < 2:
+        raise AssertionError(f"expected {n_groups} launches, got {n_l}")
+    bad = [k for k, a in enumerate(got) if own_score(a) != a.score]
+    if bad:
+        raise AssertionError(f"{len(bad)} paths do not score their DP's "
+                             f"maximum")
+    pick = list(range(0, 1024, 64))
+    want = [cref.sw_score(pairs[k][0], pairs[k][1], sub, 10, 2)
+            for k in pick]
+    if [got[k].score for k in pick] != want:
+        raise AssertionError("64 x 16 x 6,000: scores differ from the "
+                             "oracle")
+    four = pick[:4]
+    if ([rows(pairs[k][0], [pairs[k][1]], [got[k]])[0] for k in four]
+            != [r[0] for r in ref_rows([pairs[k][0] for k in four],
+                                       [[pairs[k][1]] for k in four])]):
+        raise AssertionError("64 x 16 x 6,000: m8 rows differ from the "
+                             "plain reference")
+    out["dispatch64"] = {"ms": ms, "launches": n_l,
+                         "cells": 1024 * 6000 * 6000,
+                         "workspace_bytes": align.WORKSPACE_BYTES}
+    note(f"64 queries x 16 hits, all 6,000 aa: {ms:.1f} ms, {n_l} launches "
+         f"(cap {align.WORKSPACE_BYTES >> 20} MiB), every path scores its "
+         f"DP; 16 scores equal the C oracle, 4 rows the plain reference")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def card_fuzz(search_kernels, counted) -> dict:
     """Phase 20, the card fuzz (benchmarks/fuzz.py, benchmarks/acceptance.py),
     its launches counted apart from the kernels line: (a) fuzz rounds from
@@ -2700,6 +2958,7 @@ def main(argv=None) -> int:
     compare_new_kernels(errs)
     compare_probe_kernels(errs)
     compare_at_gap_bound(errs)
+    compare_align()
     phases["compare_s"] = time.perf_counter() - t
     if kernels_only:
         note(f"kernels only: max_abs_err per kernel {errs}")
@@ -2894,6 +3153,10 @@ def main(argv=None) -> int:
                             streamed["batch20_8192"]["windows"], config,
                             counted)
     phases["serving_s"] = serving["phase_s"]
+
+    # ---- phase 22: alignments on the card at full size ----
+    aligned = align_paths(packed, queries, results, config)
+    phases["align_s"] = aligned.pop("phase_s")
 
     # ---- phase 18: distribution, on the resident DB and the memmapped one
     sharded = sharded_paths(td / "db", packed, spacked, dev_db, queries,

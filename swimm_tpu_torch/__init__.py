@@ -36,7 +36,10 @@ numpy only. Entry points run on 'cuda' unless given device='cpu'.
                                            is its one-chunk case)
   ops.ladder         the precision ladder on the kernels' ceiling variants
   utils.stats        the E-value fit (a copy of swimm_tpu.utils.stats)
-  ops.traceback      host alignment of the reported hits (--align, m8)
+  ops.align          alignments of the reported hits (--align, m8): one
+                     call a batch -> sw_align_kernel (csrc/sw_align.cu)
+                     on a card, ops.traceback.sw_align on the CPU
+  ops.traceback      the host traceback (numpy Gotoh with backpointers)
   ops.cref, native   the C reference scorer (--selfcheck) and the C FASTA
                      parser and packer, built from csrc/ by _cc
   db / fasta / ...   packed DB format v1, FASTA, matrices, alphabet

@@ -117,15 +117,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rescore every reported hit with the C reference "
                          "scorer (csrc/swref.c) and fail on any mismatch")
     se.add_argument("--align", action="store_true",
-                    help="host traceback: print a BLAST-style alignment "
-                         "for every reported hit")
+                    help="traceback (ops/align.py: on the card, or on the "
+                         "host with --device cpu): print a BLAST-style "
+                         "alignment for every reported hit")
     se.add_argument("--json", action="store_true", help="JSON output")
     se.add_argument("--format", choices=["table", "json", "m8"],
                     default=None,
                     help="output format: 'table' (default), 'json' (same "
                          "as --json), 'm8' (BLAST tabular, 12 "
-                         "tab-separated columns per hit; runs the host "
-                         "traceback per hit like --align and implies "
+                         "tab-separated columns per hit; runs the "
+                         "traceback of every hit like --align and implies "
                          "--evalue)")
     se.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the search "
@@ -497,20 +498,9 @@ def _search(args) -> int:
               "the C reference scorer)", file=sys.stderr)
     aligns = None
     if args.align or fmt == "m8":
-        from swimm_tpu_torch.ops.traceback import sw_align
-        aligns = []
-        for q, r in zip(queries, results):
-            row = []
-            for h in r.hits:
-                a = sw_align(q.codes, packed.seq_codes(h.sorted_idx),
-                             matrix=args.matrix, gap_open=args.gap_open,
-                             gap_extend=args.gap_extend)
-                if a.score != h.score:   # a probe from kernel to traceback
-                    raise AssertionError(
-                        f"traceback score {a.score} != device hit score "
-                        f"{h.score} for {h.title!r}")
-                row.append(a)
-            aligns.append(row)
+        from swimm_tpu_torch.ops.align import align_hits
+        aligns = align_hits(results, queries, packed, config,
+                            device=resolve_device(args.device))
     if fmt == "m8":
         # pure TSV on stdout; the run summary to stderr
         from swimm_tpu_torch.formats import m8_rows

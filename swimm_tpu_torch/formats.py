@@ -5,7 +5,8 @@
     qseqid sseqid pident length mismatch gapopen
     qstart qend sstart send evalue bitscore
 Coordinates are 1-based inclusive. The alignment columns come from the
-host traceback of each reported hit (ops/traceback.py). evalue and
+traceback of each reported hit (ops/align.py: on the card, or
+ops/traceback.py on the CPU). evalue and
 bitscore are the empirical fit's (utils/stats.py: bits = surprise / ln 2
 where E = n_db * exp(-surprise)); without E-values both print ``*``. The
 identifier columns are the first whitespace-delimited token of each FASTA

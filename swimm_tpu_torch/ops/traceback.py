@@ -2,9 +2,11 @@
 swimm_tpu/ops/traceback.py, copied).
 
 A numpy Gotoh pass with backpointers, run on the host for the <= top_k
-sequences of a hit list only (the CLI's --align and --format m8, the
-server's "align" and "format": "m8"): O(k * mn) host work beside a
+sequences of a hit list only: O(k * mn) host work beside a
 database-sized device search. It is not a kernel of the JAX package either.
+ops/align.py runs it for the CLI's --align and --format m8 and the
+server's "align" and "format": "m8" on the CPU; on a card they take
+sw_align_kernel, which is held to it bit for bit.
 
 Same recurrence and gap convention as ops/reference.py (a gap of length k
 costs gap_open + k * gap_extend). Ties are broken as in swimm_tpu: the

@@ -44,7 +44,9 @@ of which reaches a kernel. top_k above a ceiling (max_top_k, CLI
 at the next power of two (the default itself when it is smaller) and
 truncated: the ranked list under the (score desc, sorted index asc) order
 is prefix-stable in k, so truncation equals a direct k-run, and a client
-sweeping k meets at most log2(max_top_k) distinct searches.
+sweeping k meets at most log2(max_top_k) distinct searches. The hits of
+every request of a dispatch that asks for "align" or "m8" are aligned in
+one ops.align call on the server's device (sw_align_kernel on a card).
 
 Threads: searches run on the thread that calls SearchServer.handle (stdio)
 or on the Batcher's one dispatcher thread (TCP, HTTP); handler threads
@@ -59,11 +61,11 @@ request is retried on the CPU or through a plain version.
 
 A run under a torch profiler (the CLI's ``search --profile-dir``, or any
 ``torch.profiler.profile`` around a server in the process) records the
-program's spans (utils/metrics.py): ``batcher.queue``, ``batcher.dispatch``
-and ``server.postprocess`` here, the Batcher's ``seq`` on a request's
-queue and postprocess spans across threads, and ``engine.search``,
-``engine.profile``, ``engine.launch``, ``engine.top_k`` and
-``engine.collect`` in models/engine.py.
+program's spans (utils/metrics.py): ``batcher.queue``, ``batcher.dispatch``,
+``server.postprocess`` and ``server.align`` here, the Batcher's ``seq`` on a
+request's spans across threads, ``align.launch`` in ops/align.py, and
+``engine.search``, ``engine.profile``, ``engine.launch``, ``engine.top_k``
+and ``engine.collect`` in models/engine.py.
 """
 
 from __future__ import annotations
@@ -144,22 +146,8 @@ def _bucket_k(k: int, default_k: int, max_k: int) -> int:
     return min(b, max_k)
 
 
-def _alignments(result, packed, query, scoring):
-    """Host traceback per reported hit (as the CLI's --align); the
-    recovered path's score must equal the device hit score."""
-    from swimm_tpu_torch.ops.traceback import sw_align
-    aligns = []
-    for h in result.hits:
-        a = sw_align(query.codes, packed.seq_codes(h.sorted_idx),
-                     matrix=scoring["matrix"],
-                     gap_open=scoring["gap_open"],
-                     gap_extend=scoring["gap_extend"])
-        if a.score != h.score:
-            raise AssertionError(
-                f"traceback score {a.score} != device hit score "
-                f"{h.score} for {h.title!r}")
-        aligns.append(a)
-    return aligns
+def _needs_align(opts) -> bool:
+    return opts["align"] or opts["format"] == "m8"
 
 
 def _hits_json(result, aligns=None):
@@ -319,18 +307,25 @@ class SearchServer:
                          "align": bool(req.get("align", False)),
                          "format": fmt}
 
-    def _postprocess(self, queries, results, metrics, opts, rid) -> dict:
+    def _align(self, queries, results) -> list:
+        """Every hit's alignment for queries and their results, one list
+        per query, in one ops.align call (one launch group on a card); each
+        path's score must equal its hit's."""
+        from swimm_tpu_torch.ops import align
+        return align.align_hits(results, queries, self._packed,
+                                self._config, self._device)
+
+    def _postprocess(self, queries, results, metrics, opts, rid,
+                     aligns=None) -> dict:
         """The response dict for one request's slice of a search, whose
         results may come from a LARGER top_k (a coalesced batch runs at
-        its largest search_k): truncated to the request's top_k."""
+        its largest search_k): truncated to the request's top_k. A request
+        that asks for alignments gets ``aligns`` (one list per query, of
+        the truncated hits), or aligns here when none are given."""
         results = [replace(r, hits=r.hits[:opts["top_k"]]) for r in results]
-        scoring = {"matrix": self._config.matrix,
-                   "gap_open": self._config.gap_open,
-                   "gap_extend": self._config.gap_extend}
-        need_align = opts["align"] or opts["format"] == "m8"
-        aligns = [_alignments(r, self._packed, q, scoring)
-                  if need_align else None
-                  for q, r in zip(queries, results)]
+        if aligns is None:
+            aligns = (self._align(queries, results) if _needs_align(opts)
+                      else [None] * len(results))
         resp = {**rid,
                 "results": [
                     _hits_json(r, aligns=a if opts["align"] else None)
@@ -496,16 +491,40 @@ class Batcher:
             met = json.loads(metrics.to_json())
             met["batched_requests"] = len(batch)
             met["batched_queries"] = len(all_q)
-            off = 0
-            for queries, opts, rid, box, ev, seq, _ in batch:
-                rs = results[off:off + len(queries)]
+            work, off = [], 0
+            for queries, opts, *_ in batch:
+                work.append([replace(r, hits=r.hits[:opts["top_k"]])
+                             for r in results[off:off + len(queries)]])
                 off += len(queries)
+            need = [k for k, item in enumerate(batch)
+                    if _needs_align(item[1])]
+
+            def answer(k, aligns=None):
+                queries, opts, rid, box, ev, seq, _ = batch[k]
                 with span("server.postprocess", seq=seq):
-                    resp = self._srv._postprocess(queries, rs, metrics,
-                                                  opts, rid)
+                    resp = self._srv._postprocess(queries, work[k], metrics,
+                                                  opts, rid, aligns)
                 resp["metrics"] = met
                 box["resp"] = resp
                 ev.set()
+            for k in range(len(batch)):   # no alignments: answered at once
+                if k not in need:
+                    answer(k)
+            if need:      # one alignment call for every request that asks
+                t_align = time.perf_counter()
+                flat = self._srv._align(
+                    [q for k in need for q in batch[k][0]],
+                    [r for k in need for r in work[k]])
+                lens = self._srv._packed.lengths
+                for k in need:
+                    aligns, flat = flat[:len(work[k])], flat[len(work[k]):]
+                    answer(k, aligns)
+                    record("server.align", t_align, time.perf_counter(),
+                           seq=batch[k][5],
+                           pairs=sum(len(r.hits) for r in work[k]),
+                           cells=sum(q.length * int(lens[h.sorted_idx])
+                                     for q, r in zip(batch[k][0], work[k])
+                                     for h in r.hits))
         except Exception as e:   # noqa: BLE001 — a dead dispatcher hangs
             # every queued client; answer the batch and keep going
             print(f"{LOG_PREFIX} batch dispatch failed: {e!r}\n"

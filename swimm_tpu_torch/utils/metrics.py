@@ -10,6 +10,7 @@ interval timed elsewhere, such as one that began on another thread (a
 request's wait in a queue). Each record holds its name, ``t0``, ``t1`` and
 its attrs, where counts go (``cells``, ``kernel``, ``seq``). Records stay in
 memory, the newest ``MAX_SPANS``, and ``spans(lo, hi)`` reads them back.
+Counters (``count(name, n)``, read by ``counter(name)``) are always on.
 
 Recording is on exactly while a torch profiler session is open in the
 process (``torch.profiler.profile``, the CLI's ``--profile-dir``), on every
@@ -33,6 +34,7 @@ from dataclasses import dataclass, field
 MAX_SPANS = 1 << 16
 
 _records: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_counts: collections.Counter = collections.Counter()
 
 
 def tracing() -> bool:
@@ -92,6 +94,17 @@ def spans(lo: float = float("-inf"), hi: float = float("inf")) -> list:
     """The kept records that overlap [lo, hi] (perf_counter seconds), in
     the order they were kept."""
     return [r for r in _records.copy() if r.t1 >= lo and r.t0 <= hi]
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the always-on counter ``name`` (``align.pairs``)."""
+    _counts[name] += n
+
+
+def counter(name: str) -> int:
+    """The counter's total since the process started (0 if never
+    counted)."""
+    return _counts[name]
 
 
 def gcups(cells: int, seconds: float) -> float:

@@ -160,6 +160,7 @@ def test_package_imports_neither_jax_nor_swimm_tpu():
             "swimm_tpu_torch.client, swimm_tpu_torch.formats, "
             "swimm_tpu_torch.native, swimm_tpu_torch._cc, "
             "swimm_tpu_torch.ops.cref, swimm_tpu_torch.ops.traceback, "
+            "swimm_tpu_torch.ops.align, "
             "swimm_tpu_torch.parallel, swimm_tpu_torch.parallel.mesh, "
             "swimm_tpu_torch.parallel.sharded_search, "
             "swimm_tpu_torch.parallel.sharded_stream, "
