@@ -141,7 +141,13 @@ launch counts added to the kernels line (kernels 1 and 2):
      'buffer' and 'candidates' merges, each with and without evalue: hits,
      E-values and bit scores equal the resident search's; one run under
      torch.profiler (device idle share, host-to-device copy ms beside the
-     bytes the windows hold); kernel 1's ms on each window for query 0;
+     bytes the windows hold); kernel 1's ms on each window for query 0,
+     unsplit and on the split walk's plans; the split counters of a
+     streamed batch and a resident search; the split walk over every
+     window with every block forced into 2 and 4 parts; its gate: the last
+     window's plan behind kernel 1 on another stream and with its split
+     entries last, the first window with far more parts than slots, all
+     exact (compare_split_gate);
  14. the 20 queries at window_tiles=1024 (about 50 windows), both merges,
      equal hits, with the peak device memory the run allocates held under
      a bound from its slots, carries and buffers;
@@ -839,6 +845,209 @@ def compare_kernels(errs: dict) -> None:
     compare_qtile_carry_form(rng, errs)
     compare_qtile_pairs(rng, errs)
     compare_tiles_pairs(rng, errs)
+    compare_tiles_split(rng, errs)
+
+
+def forced_split(tiles, row_start, m: int, k: int):
+    """A scorer.Split of the stream (tiles, row_start) for an m-row profile
+    with every block in k parts, or as many as the profile's rounds allow
+    (scorer.split_plan, forced; the card's own slots); None where none
+    splits."""
+    from swimm_tpu_torch.ops import scorer
+    V = tiles.shape[2]
+    lens = np.diff(row_start.cpu().numpy()) * tiles.shape[1]
+    return scorer.upload_split(scorer.split_plan(
+        lens, m, V, scorer.split_slots(tiles.device, V), force=k),
+        tiles.device)
+
+
+def split_counts() -> tuple:
+    """The split walk's counters: (launches, rows, parts)."""
+    from swimm_tpu_torch.utils import metrics
+    return tuple(metrics.counter(f"score_tiles.split_{c}")
+                 for c in ("launches", "rows", "parts"))
+
+
+def compare_tiles_split(rng, errs: dict) -> None:
+    """Kernel 1's split walk on small cases, every block in k = 2 and 4
+    parts (as many as the profile's rounds allow), bit-exact against the
+    unsplit pair form and the plain version, the counters moved by the
+    plan's rows and parts: blocks of one tile (fewer steps than the ring's
+    workers, so rounds padded to S * k steps), 130 tiles (the streamed
+    cell's longest block), one round (m = 112, 136: five strips, 4k past
+    them), several rounds (448, 496, 2048), tail strips (40, 112, 136,
+    264, 200), 64, 128 and 512 lanes (four and two workers), free and flat
+    gaps; m = 40 (one round) takes no split."""
+    from swimm_tpu_torch.ops import scorer
+    k1 = "sw_ragged_kernel"
+    note(f"{k1} split walk: {scorer.split_slots('cuda', 128)} slots at 128 "
+         f"lanes, {scorer.split_slots('cuda', 512)} at 512")
+    for counts, V, m, go, ge in (
+            ([1, 3, 1, 5, 2], 128, 40, 10, 2),
+            ([2, 130, 7, 1], 128, 448, 10, 2), ([1, 4, 2], 128, 112, 10, 2),
+            ([3, 1, 2, 9], 128, 136, 0, 0), ([1, 7, 2, 40], 128, 496, 10, 2),
+            ([2, 5], 64, 448, 10, 2), ([2, 3, 1], 512, 200, 10, 2),
+            ([1, 130], 128, 2048, 10, 2), ([4, 2], 128, 496, 0, 0),
+            ([6, 1], 128, 264, 5, 0)):
+        tiles, outrow, n_rows = ragged_case(rng, counts, V)
+        rs = scorer.row_starts(outrow, n_rows)
+        qp = profile(rng, m)
+        base = scorer._tiles_pairs(tiles, outrow, n_rows, qp, go, ge, rs)
+        ref = scorer.score_tiles_pairs_ref(tiles, outrow, n_rows, qp, go, ge)
+        for k in (2, 4):
+            split = forced_split(tiles, rs, m, k)
+            if split is None:
+                if m != 40:
+                    raise AssertionError(f"m={m} V={V}: no split at k={k}")
+                note(f"{k1} split walk V={V} m={m}: one round, no split")
+                break
+            before = split_counts()
+            got = scorer._tiles_pairs(tiles, outrow, n_rows, qp, go, ge, rs,
+                                      split)
+            torch.cuda.synchronize()
+            moved = tuple(a - b for a, b in zip(split_counts(), before))
+            if moved != (1, split.rows, split.parts):
+                raise AssertionError(f"split counters moved {moved}, "
+                                     f"expected (1, {split.rows}, "
+                                     f"{split.parts})")
+            e = max(max_err(got, base), max_err(got, ref))
+            errs[k1] = max(errs[k1], e)
+            note(f"{k1} split walk V={V} m={m} gaps={go}/{ge} "
+                 f"k={k}: {split.block_map.numel()} CUDA blocks on "
+                 f"{n_rows} DB blocks, max_abs_err {e} against the unsplit "
+                 "pair form and the plain version")
+
+
+def compare_split_windows(dev_db, spans, cum) -> dict:
+    """The split walk at full size: over every window of the 8,192-tile
+    plan, every block in k = 2 and 4 parts (as many as the rounds allow),
+    for m = 40, 112, 136, 448 and 496 at gaps 10/2 and 0/0, bit-exact
+    against the unsplit pair form and the plain version (on the card).
+    Returns the launches checked."""
+    from swimm_tpu_torch.ops import scorer
+    tiles, outrow = dev_db[:2]
+    rng = np.random.default_rng(21)
+    checked = 0
+    for m in (40, 112, 136, 448, 496):
+        for go, ge in ((10, 2), (0, 0)):
+            qp = profile(rng, m)
+            worst = 0
+            for g0, g1 in spans:
+                t0, t1 = int(cum[g0]), int(cum[g1])
+                rs = torch.from_numpy(cum[g0:g1 + 1] - t0).cuda()
+                win = (tiles[t0:t1], (outrow[t0:t1] - g0).contiguous(),
+                       g1 - g0)
+                base = scorer._tiles_pairs(*win, qp, go, ge, rs)
+                ref = scorer.score_tiles_pairs_ref(*win, qp, go, ge, rs)
+                worst = max(worst, max_err(base, ref))
+                for k in (2, 4):
+                    split = forced_split(win[0], rs, m, k)
+                    if split is None:
+                        continue
+                    got = scorer._tiles_pairs(*win, qp, go, ge, rs, split)
+                    worst = max(worst, max_err(got, base))
+                    checked += 1
+            note(f"split walk, every window of the 8,192-tile plan, m={m} "
+                 f"gaps={go}/{ge}: max_abs_err {worst} against the unsplit "
+                 f"pair form and the plain version ({checked} split "
+                 "launches so far)")
+            if worst:
+                raise AssertionError(f"split walk m={m} gaps={go}/{ge}: "
+                                     f"max_abs_err {worst}")
+    return {"split_launches_checked": checked}
+
+
+def split_raw(tiles, n_rows, rs, qp, go, ge, bmap):
+    """One launch of the split walk on block map bmap (host int32), as
+    scorer._tiles_pairs makes it, with its words kept: (scores (n_rows, V),
+    the DB blocks walked in parts, those walked by one part alone after its
+    gate closed). Queued on the current stream; the counts wait for it."""
+    from swimm_tpu_torch.ops import scorer
+    T, jt, V = tiles.shape
+    m, n = qp.shape[1], len(bmap)
+    dmap = torch.from_numpy(bmap).to(tiles.device)
+    buf = torch.zeros(n_rows * V + 2 * n, dtype=torch.int32,
+                      device=tiles.device)
+    carry = scorer.strip_carry(m, tiles.shape, tiles.device, pairs=True)
+    scorer.raise_on(scorer.kernels().sw_ragged_split_launch(
+        tiles.data_ptr(), rs.data_ptr(), n_rows, n, V, jt, qp.data_ptr(), m,
+        go + ge, ge, dmap.data_ptr(), buf[n_rows * V:].data_ptr(),
+        scorer._ptr(carry), buf.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "sw_ragged_kernel")
+    first = ((bmap >> 2) & 3) == 0
+    first &= (bmap & 3) > 0                  # part 0 of a split DB block
+    gates = buf[n_rows * V + n:].cpu().numpy()[first]
+    alone = int((gates & (1 << 30) != 0).sum())
+    return buf[:n_rows * V].view(n_rows, V), len(gates) - alone, alone
+
+
+def compare_split_gate(dev_db, spans, cum) -> dict:
+    """The split walk's gate (csrc/sw_walk_hg.cuh): launches finish, exact,
+    whatever the order in which their CUDA blocks start and whatever else
+    holds the card's slots. On the streamed cell's last window at m = 448,
+    its plan on the card's slots (a) with kernel 1 over the whole resident
+    stream queued just before it on another stream, so that the split
+    launch's CUDA blocks start as that one's free their slots, (b) with the
+    plan's split entries moved behind its other DB blocks, so that they
+    start one by one as slots free; on the first window (c) every DB block
+    in 2 parts and (d) in 4, far more parts than slots. Every result is
+    held against the unsplit pair form; returns the DB blocks walked in
+    parts and walked alone in each."""
+    from swimm_tpu_torch.ops import scorer
+    tiles, outrow = dev_db[:2]
+    rng = np.random.default_rng(25)
+    qp = profile(rng, 448)
+    V = tiles.shape[2]
+    slots = scorer.split_slots("cuda", V)
+
+    def window(w):
+        g0, g1 = spans[w]
+        t0, t1 = int(cum[g0]), int(cum[g1])
+        rs = torch.from_numpy(cum[g0:g1 + 1] - t0).cuda()
+        return (tiles[t0:t1], (outrow[t0:t1] - g0).contiguous(), g1 - g0,
+                rs, np.diff(cum[g0:g1 + 1]) * tiles.shape[1])
+
+    out = {}
+    last = window(len(spans) - 1)
+    base = scorer._tiles_pairs(*last[:3], qp, 10, 2, last[3])
+    bmap, rows, _ = scorer.split_plan(last[4], 448, V, slots)
+    n_all = len(cum) - 1
+    rs_all = torch.from_numpy(cum).cuda()
+    full_base = scorer._tiles_pairs(tiles, outrow, n_all, qp, 10, 2, rs_all)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        full = scorer._tiles_pairs(tiles, outrow, n_all, qp, 10, 2, rs_all)
+    got, walked, alone = split_raw(last[0], last[2], last[3], qp, 10, 2,
+                                   bmap)
+    torch.cuda.synchronize()
+    if max_err(got, base) or max_err(full, full_base):
+        raise AssertionError("split gate (a): scores differ")
+    out["behind_another_kernel"] = (walked, alone)
+    split_first = ((bmap & 3) > 0)
+    moved = np.concatenate([bmap[~split_first], bmap[split_first]])
+    got, walked, alone = split_raw(last[0], last[2], last[3], qp, 10, 2,
+                                   moved)
+    if max_err(got, base):
+        raise AssertionError("split gate (b): scores differ")
+    out["split_entries_last"] = (walked, alone)
+    first = window(0)
+    base = scorer._tiles_pairs(*first[:3], qp, 10, 2, first[3])
+    for k in (2, 4):
+        fmap, _, _ = scorer.split_plan(first[4], 448, V, slots, force=k)
+        got, walked, alone = split_raw(first[0], first[2], first[3], qp, 10,
+                                       2, fmap)
+        if max_err(got, base):
+            raise AssertionError(f"split gate (c/d) k={k}: scores differ")
+        out[f"first_window_k{k}"] = (walked, alone, len(fmap))
+    note(f"split walk's gate, m=448, {slots} slots, (DB blocks walked in "
+         f"parts, walked alone): last window ({rows} split) behind kernel 1 "
+         f"over the whole stream on another stream "
+         f"{out['behind_another_kernel']}, split entries last "
+         f"{out['split_entries_last']}; first window, every block in k "
+         f"parts (+ CUDA blocks): k=2 {out['first_window_k2']}, k=4 "
+         f"{out['first_window_k4']}; all exact against the unsplit pair form")
+    return out
 
 
 def chunk_case(rng, B, L, V):
@@ -1305,20 +1514,41 @@ def check_hits(packed, queries, results, config, n_oracle: int) -> int:
     return n
 
 
+TRACE_PAD_S = 0.2   # idle host time at each end of a profiled window
+
+
 def device_breakdown(fn, launches_of: str | None = None) -> dict:
     """Wall time of fn() under torch.profiler, the device time of its CUDA
     kernels (ours vs the rest, host-to-device copies among the rest and
     also apart), and the device's idle share of the wall. Device numbers
     read "not measured" when the trace holds no device time. With
     launches_of, also "launch_ms": the device ms of every launch of the
-    kernels whose name holds it, in the order they started."""
+    kernels whose name holds it, in the order they started.
+
+    A short session with no work opens and closes first: the first
+    session after a long stretch of work without one can lose the device
+    events of its first ~0.27 s (on an H100, the headline's first query,
+    its kernel 1 and 15 more events, in the CPU-side spans but not on the
+    device timeline; a session right after another loses none: PERF.md
+    §7). The trace then opens TRACE_PAD_S before fn() starts and closes
+    TRACE_PAD_S after its device work has ended. "edges_ms": the first
+    device event's start and the last one's end, from the trace's start,
+    and the trace's length on the host's clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t_open = time.perf_counter()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
         t = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        trace_ms = (time.perf_counter() - t_open) * 1e3
     ours = other = h2d = 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1334,8 +1564,12 @@ def device_breakdown(fn, launches_of: str | None = None) -> dict:
         return {"wall_ms": wall_ms, "kernel_ms": "not measured",
                 "other_device_ms": "not measured", "h2d_ms": "not measured",
                 "idle_share": "not measured"}
+    dev = [e.time_range for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
     out = {"wall_ms": wall_ms, "kernel_ms": ours, "other_device_ms": other,
-           "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms}
+           "h2d_ms": h2d, "idle_share": 1 - (ours + other) / wall_ms,
+           "edges_ms": [min(r.start for r in dev) / 1e3,
+                        max(r.end for r in dev) / 1e3, trace_ms]}
     if launches_of is not None:
         out["launch_ms"] = [e.time_range.elapsed_us() / 1e3 for e in sorted(
             (e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1598,10 +1832,11 @@ def same_evalues_of(a, b) -> bool:
             == [[(h.evalue, h.bits) for h in r.hits] for r in b])
 
 
-def window_kernel_ms(dev_db, spans, cum, qp) -> list:
+def window_kernel_ms(dev_db, spans, cum, qp, split: bool = False) -> list:
     """Kernel 1's device ms on each window of a plan, at its fill, over the
-    resident stream's tiles (the same codes the streamed window holds)."""
-    from swimm_tpu_torch.ops import scorer
+    resident stream's tiles (the same codes the streamed window holds);
+    with split, on the split plan the streamed search takes there."""
+    from swimm_tpu_torch.ops import lanes, scorer
     tiles, outrow = dev_db[:2]
     bounds = scorer.profile_bounds(qp)
     out = []
@@ -1609,9 +1844,12 @@ def window_kernel_ms(dev_db, spans, cum, qp) -> list:
         t0, t1 = int(cum[g0]), int(cum[g1])
         rs = torch.from_numpy(cum[g0:g1 + 1] - t0).cuda()
         orow = (outrow[t0:t1] - g0).contiguous()
+        plan = (lanes.Splits(np.diff(cum[g0:g1 + 1]) * tiles.shape[1],
+                             tiles.shape[2], tiles.device)[qp.shape[1]]
+                if split else None)
         out.append(cuda_ms(lambda: scorer.score_tiles(
             tiles[t0:t1], orow, g1 - g0, qp, 10, 2, row_start=rs,
-            bounds=bounds)))
+            bounds=bounds, split=plan)))
     return out
 
 
@@ -1630,7 +1868,7 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
     from swimm_tpu_torch.models.engine import (SearchConfig,
                                                score_db_streaming, search)
     from swimm_tpu_torch.ops import longquery
-    from swimm_tpu_torch.ops.lanes import Profile
+    from swimm_tpu_torch.ops.lanes import Profile, Splits
     from swimm_tpu_torch.ops.lanes import score as score_lanes
     out, phases = {}, {}
     spacked = load_db(db_dir)
@@ -1686,21 +1924,55 @@ def stream_paths(db_dir, packed, dev_db, queries, results, long_q, long_res,
                  "resident search's")
     sconfig = SearchConfig(top_k=16, db_stream=True)
     prof = device_breakdown(lambda: search(spacked, queries, sconfig))
+    # the split walk's counters over one streamed batch (only windows
+    # whose longest blocks pass their share a slot split) and one resident
+    # search (none)
+    ms_k1 = [Profile.build(q, config).rows for q in queries]
+    ms_k1 = [m for m in ms_k1 if m <= 2048]
+    want = [0, 0, 0]
+    for g0, g1 in spans:
+        splits = Splits(np.diff(cum[g0:g1 + 1]) * jt, V, "cuda")
+        for m in ms_k1:
+            if splits[m] is not None:
+                want = [want[0] + 1, want[1] + splits[m].rows,
+                        want[2] + splits[m].parts]
+    before = split_counts()
+    search(spacked, queries, sconfig)
+    batch_split = [a - b for a, b in zip(split_counts(), before)]
+    before = split_counts()
+    search(packed, queries, config)
+    resident_split = [a - b for a, b in zip(split_counts(), before)]
+    if batch_split != want or any(resident_split):
+        raise AssertionError(f"split counters: streamed batch {batch_split} "
+                             f"(the plans give {want}), resident "
+                             f"{resident_split} (expected none)")
+    note(f"split walk counters (launches, rows, parts): streamed "
+         f"{N_QUERIES}-query batch {batch_split}, resident search "
+         f"{resident_split}")
     win_ms = window_kernel_ms(dev_db, spans, cum, qp0)
+    win_ms_split = window_kernel_ms(dev_db, spans, cum, qp0, split=True)
     whole_ms = cuda_ms(lambda: score_lanes(dev_db[:4], prof0,
                                            config.gap_open,
                                            config.gap_extend))
+    split_check = compare_split_windows(dev_db, spans, cum)
+    split_check["gate"] = compare_split_gate(dev_db, spans, cum)
     out["batch20_8192"] = {
         "windows": n_win, "width_tiles": wt, "r_cap": r_cap,
         "runs": runs, "profiled": prof, "h2d_bytes": h2d_bytes(spans),
         "query0_kernel_ms_per_window": win_ms,
         "query0_kernel_ms_windows_sum": sum(win_ms),
-        "query0_kernel_ms_whole_stream": whole_ms}
+        "query0_kernel_ms_per_window_split": win_ms_split,
+        "query0_kernel_ms_windows_sum_split": sum(win_ms_split),
+        "query0_kernel_ms_whole_stream": whole_ms,
+        "split_counters_batch": batch_split,
+        "split_counters_resident": resident_split, **split_check}
     note(f"streamed {N_QUERIES}-query batch under torch.profiler: {prof}; "
          f"host-to-device {h2d_bytes(spans)} bytes")
     note(f"kernel 1, query 0 (m={qp0.shape[1]}), per window of <= 8192 "
          f"tiles: {[round(x, 3) for x in win_ms]} ms, sum {sum(win_ms):.3f}"
-         f" ms against {whole_ms:.3f} ms over the whole stream")
+         f" ms unsplit; {[round(x, 3) for x in win_ms_split]} ms, sum "
+         f"{sum(win_ms_split):.3f} ms on the streamed search's split plans;"
+         f" {whole_ms:.3f} ms over the whole stream")
     phases["stream20_8192_s"] = time.perf_counter() - t
 
     # ---- phase 14: 1,024-tile windows, peak device memory ----
@@ -2825,7 +3097,10 @@ def bench_entry_points(db_dir, packed, queries, results, long_q, long_res,
     n_runs = 1 + line["resident_reps"]
     if len(ms) != N_QUERIES * n_runs:
         raise AssertionError(f"phase 21: {len(ms)} kernel-1 launches traced "
-                             f"for {n_runs} searches of {N_QUERIES}")
+                             f"for {n_runs} searches of {N_QUERIES}; device "
+                             f"events from / to, trace (ms) "
+                             f"{prof['edges_ms']}; launch ms "
+                             f"{[round(x, 3) for x in ms]}")
     reps = [ms[i * N_QUERIES:(i + 1) * N_QUERIES] for i in range(n_runs)]
     per_query = np.array(reps[1:])             # (reps, queries)
     out["bench_profiled"] = dict(
@@ -2842,7 +3117,8 @@ def bench_entry_points(db_dir, packed, queries, results, long_q, long_res,
                      for r in out["bench_profiled"]["kernel1_ms_per_run"])
          + f"; a query's launch spread across reps "
          f"{out['bench_profiled']['kernel1_query_spread_pct']:.2f}%; idle "
-         f"{prof['idle_share']}")
+         f"{prof['idle_share']}; device events from / to, trace (ms) "
+         f"{prof['edges_ms']}")
 
     seen = {}
     for counts in out["launches"].values():

@@ -16,6 +16,7 @@ np.minimum), with exact equality:
   k4      scorer.score_chunk (sw_chunk_kernel<CEIL>)      qlen <= 2048
   k5      longquery.score_chunk_long (sw_chunk_qtile)     qlen > 2048
   k1      scorer.score_tiles (sw_ragged_kernel)           qlen <= 2048
+  k1_split  score_tiles on the split walk, forced          qlen <= 2048
   k2      longquery.score_tiles_long (sw_ragged_qtile)    qlen > 2048
   k2_planted  score_tiles_long on the planted stream      qlen > 2048
   k2_int32    longquery.score_tiles_long_int32 on it      qlen > 2048
@@ -37,7 +38,12 @@ score_tiles (kernel 1's pair form and its int32 pass) with the query cut
 to the 2,048 residues kernel 1 takes, whose lanes pass 32,767 only where a
 match scores 17 (PAM250: 2,048 x 15 stays below the limit). k1 takes the
 pair form where the round has no ceiling and its int32 form where it has
-one. k3 takes a pack
+one. k1_split takes the round's stream through score_tiles with every
+block walked by several CUDA blocks (scorer.split_plan forced to 4 parts
+for an odd query length, else 2, as far as the query's rounds of strips
+allow; on the card's own slots) where the round has no ceiling: the split
+walk of kernel 1's pair form (on the CPU, where nothing splits, the plain
+walk). k3 takes a pack
 of 2-6 new queries of 1-300 aa, drawn from a second generator
 default_rng([seed, round]) so that the shared draws stay seed for seed
 equal, packed under the round's matrix and scored over that stream under
@@ -80,8 +86,8 @@ MATRICES = ["BLOSUM45", "BLOSUM50", "BLOSUM62", "BLOSUM80", "BLOSUM90",
             "PAM30", "PAM70", "PAM250"]
 V = 128            # lanes per block, as fuzz_tpu.py
 SHORT_MAX = 2048   # longest query on the one-pass routes (max_query_pad)
-ROUTES = ("k4", "k5", "k1", "k2", "k2_planted", "k2_int32", "k1_planted",
-          "k3", "ladder")
+ROUTES = ("k4", "k5", "k1", "k1_split", "k2", "k2_planted", "k2_int32",
+          "k1_planted", "k3", "ladder")
 PAIR_MAX = 32767   # the largest value of a 16-bit lane
 
 
@@ -253,6 +259,15 @@ def run_round(draw: Draw, device, rng2: np.random.Generator) -> dict:
         routes["k1"] = scorer.score_tiles(tiles, outrow, n_rows, qp, go, ge,
                                           ceiling=ceiling, row_start=row_start)
         expected.update(k4=capped, k1=capped)
+        if ceiling is None:
+            split = scorer.upload_split(scorer.split_plan(
+                np.diff(row_start.cpu().numpy()) * tiles.shape[1],
+                qp.shape[1], V, scorer.split_slots(dev, V),
+                force=4 if draw.qlen % 2 else 2), dev)
+            routes["k1_split"] = scorer.score_tiles(
+                tiles, outrow, n_rows, qp, go, ge, row_start=row_start,
+                split=split)
+            expected["k1_split"] = exact
     pack = pack_queries(rng2)
     planes = np.zeros((len(pack), n_blocks, V), np.int64)
     for p in qpack.build_query_packs(pack, matrix=draw.matrix):

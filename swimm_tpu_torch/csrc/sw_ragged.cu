@@ -13,7 +13,10 @@
 //                           ladder's ceilings, the fallback, the
 //                           re-score) or in 16-bit lane pairs (<false,
 //                           true>, the pair form: scorer.py says when
-//                           each runs).
+//                           each runs); the pair form also on the split
+//                           walk (<false, true, true>: a long DB block
+//                           walked by several CUDA blocks, where
+//                           scorer.split_plan splits one).
 //   sw_ragged_qtile_kernel  replaces swimm_tpu/ops/longquery.py
 //                           _dp_ragged_tile_kernel (via _score_tiles_one_qtile):
 //                           one query tile of a long query, with the H/F
@@ -137,6 +140,77 @@ sw_ragged_kernel(const int8_t* __restrict__ tiles,
         tiles + base, npos, V, qp, m, goe, ge, ceiling,
         carry ? carry + base : nullptr, smem, PackedPlanes{});
     if (threadIdx.x < V) out[(int64_t)row * V + threadIdx.x] = smax;
+  }
+}
+
+// Kernel 1's pair form on the split walk (sw_walk_hg.cuh): a DB block may
+// be walked by two or four CUDA blocks, its parts. block_map holds one
+// entry per CUDA block, row << 4 | part << 2 | (parts - 1): the DB blocks
+// split first, longest first, a DB block's parts adjacent and part 0 first,
+// then the others, longest first (built on the host: ops/scorer.py
+// split_plan). CUDA block b takes entry b, so where the card starts CUDA
+// blocks in order of blockIdx.x, as it does, it spreads the longest DB
+// blocks over its SMs as it does the unsplit kernel's (entries taken in
+// the order CUDA blocks start let the longest share SMs, and the last
+// window ran slower than unsplit: PERF.md §6). done holds a progress word
+// per entry, then a gate word per entry (that of a DB block's part 0 is
+// its gate), all zero on entry. out is zero on entry: the parts of a split
+// DB block fold their lanes' maxima into it by an atomic maximum (H >= 0);
+// a DB block walked by one CUDA block stores them.
+//
+// Forward progress, in any start order. A part waits only on parts of its
+// own DB block, and only once all of them have passed its gate, that is,
+// are running (sw_walk_hg.cuh, "The gate"); a DB block whose parts do not
+// all start within SPLIT_GATE_NS of each other is walked by one of them
+// alone. A DB block of one part waits on nothing. Speed needs more: the
+// planner gives the split DB blocks no more parts in all than the launch's
+// slots (sw_ragged_split_slots) and puts them first, so that they start in
+// the first wave, side by side.
+//
+// A separate template instance, overloading the unsplit kernel, so
+// sw_ragged_kernel<false, true> keeps its name and its code, and profiles
+// count both under kernel 1's name.
+template <bool CEIL, bool PAIRS, bool SPLIT>
+__global__ void __launch_bounds__(HG_MAX_THREADS, 1)
+sw_ragged_kernel(const int8_t* __restrict__ tiles,
+                 const int64_t* __restrict__ row_start, int V, int jt,
+                 const int* __restrict__ qp, int m, int goe, int ge,
+                 int n_rows, const int* __restrict__ block_map, int* done,
+                 unsigned* carry, int* out) {
+  static_assert(!CEIL && PAIRS && SPLIT,
+                "the split walk is kernel 1's pair form");
+  extern __shared__ int smem[];
+  __shared__ int seen;
+  const int job = blockIdx.x;   // the entry this CUDA block takes
+  const int entry = block_map[job];
+  const int row = entry >> 4;
+  int part = (entry >> 2) & 3;
+  int parts = (entry & 3) + 1;
+  if (parts > 1) {   // the gate: done's second half, at part 0's entry
+    __shared__ int turn;
+    if (threadIdx.x == 0)
+      turn = split_gate(done + gridDim.x + job - part, parts);
+    __syncthreads();
+    if (turn == GATE_LEAVE) return;
+    if (turn == GATE_ALONE) part = 0, parts = 1;
+  }
+  int npos;
+  const int64_t base = block_span(row_start, row, jt, V, &npos);
+  // the F stream follows the H stream: T * jt * V / 2 words
+  const int64_t words = row_start[n_rows] * jt * (V / 2);
+  const unsigned gm = hg_walk_block_pairs<true, true>(
+      tiles + base, npos, V, qp, m, goe, ge,
+      carry ? PairRows{carry + base / 2, carry + words + base / 2}
+            : PairRows{nullptr, nullptr},
+      smem,
+      PairSplit{part, parts, done + job,
+                done + (part > 0 ? job - 1 : job + parts - 1), &seen});
+  if (parts == 1) {
+    store_pair_max(out + (int64_t)row * V, V, gm, goe);
+  } else if (threadIdx.x < V / 2) {
+    int* const o = out + (int64_t)row * V + 2 * threadIdx.x;
+    atomicMax(o, static_cast<short>(gm & 0xFFFFu) + goe);
+    atomicMax(o + 1, static_cast<short>(gm >> 16) + goe);
   }
 }
 
@@ -279,6 +353,58 @@ extern "C" int sw_ragged_pairs_launch(const void* tiles, const void* row_start,
       static_cast<const int*>(qp), m, goe, ge, 0, static_cast<int2*>(carry),
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The pair form of kernel 1 on the split walk: n_blocks CUDA blocks, one per
+// entry of block_map, over the n_rows DB blocks of row_start; done
+// (2 * n_blocks int32: progress words, then gate words) and out zero on
+// entry; the rest as
+// sw_ragged_pairs_launch. The parts' hand-off needs the lock step of at
+// least two workers a CUDA block: an m of fewer than two strips is refused.
+extern "C" int sw_ragged_split_launch(const void* tiles, const void* row_start,
+                                      int n_rows, int n_blocks, int V, int jt,
+                                      const void* qp, int m, int goe, int ge,
+                                      const void* block_map, void* done,
+                                      void* carry, void* out, void* stream) {
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (V % 64) return static_cast<int>(cudaErrorInvalidValue);
+  int threads;
+  size_t shared;
+  const cudaError_t err =
+      hg_launch_shape(sw_ragged_kernel<false, true, true>, V / 2, m,
+                      WHOLE_PAIR_WORKERS, &threads, &shared,
+                      pair_shared_ints);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (threads < V) return static_cast<int>(cudaErrorInvalidValue);
+  sw_ragged_kernel<false, true, true><<<n_blocks, threads, shared,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(tiles),
+      static_cast<const int64_t*>(row_start), V, jt,
+      static_cast<const int*>(qp), m, goe, ge, n_rows,
+      static_cast<const int*>(block_map), static_cast<int*>(done),
+      static_cast<unsigned*>(carry), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split walk's slots on the current device: the CUDA blocks of its
+// launch shape for V lanes and an m-row profile that the card holds at
+// once (SMs times resident blocks per SM), into *slots.
+extern "C" int sw_ragged_split_slots(int V, int m, int* slots) {
+  if (V % 64) return static_cast<int>(cudaErrorInvalidValue);
+  int threads, per_sm, dev, sms;
+  size_t shared;
+  cudaError_t err =
+      hg_launch_shape(sw_ragged_kernel<false, true, true>, V / 2, m,
+                      WHOLE_PAIR_WORKERS, &threads, &shared,
+                      pair_shared_ints);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sw_ragged_kernel<false, true, true>, threads, shared);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) *slots = per_sm * sms;
+  return static_cast<int>(err);
 }
 
 extern "C" int sw_ragged_qtile_launch(const void* tiles, const void* row_start,

@@ -675,6 +675,118 @@ __device__ __forceinline__ void hg_step_pairs(
   }
 }
 
+// ---- The split walk (kernel 1's pair form, sw_ragged_kernel<false, true,
+// true>): one DB block walked by several CUDA blocks ----
+//
+// A CUDA block walks a DB block no faster than one SM can, so a block much
+// longer than its launch's share of positions per SM runs on alone after
+// every other SM has finished (the streamed search's last window: PERF.md
+// §5). The split walk puts `parts` CUDA blocks ("parts") on such a block,
+// S workers each, as one ring of S * parts workers: worker k of part c is
+// worker c * S + k of the ring and takes strips c * S + k, c * S + k + S *
+// parts, ..., the schedule of hg_walk_block with the ring S * parts long.
+// Inside a part the hand-offs stay in the shared-memory ring under the
+// lock step. Between the last worker of part c and worker 0 of part c + 1,
+// and from part parts - 1 to part 0 a round later, the bottom row goes
+// through the carry streams in place, as from the last worker of a round to
+// worker 0 of the next in the unsplit walk: every write of a position there
+// follows the read of it by the part that wrote it before, through the
+// chain of waits below, so each part reads a position before it is written
+// again. A round lasts max(ceil(npos / D), S * parts) steps, so that part 0
+// never waits on a step that waits on it.
+//
+// Progress. After every step's barrier a thread of the last worker stores
+// the part's count of finished steps with release semantics (a DB block of
+// one part waits on nothing and stores none). Before worker
+// 0 reads a step's positions from the carries it needs the previous part's
+// last worker to have written them: that part's count at least the item's
+// step there plus S. Worker 0 keeps the count it last read; only when that
+// falls short does one of its threads spin on the count with acquire
+// semantics, and worker 0's threads meet at their barrier behind it. A
+// count read once covers the steps up to it: the acquire that read it
+// follows worker 0's reads of those positions in the round before (they
+// precede, through the ring, the writes the count covers), so no stale
+// line of them can outlive it.
+//
+// The gate. The parts wait on each other, so they must all be running at
+// once, and CUDA promises neither the order in which a grid's CUDA blocks
+// start nor that they are resident together. So no part walks before every
+// part of its DB block has started: each adds one to the DB block's gate
+// word on arrival (split_gate) and waits for the others. Once all have
+// arrived they are all resident, and each wait of the walk is on a part
+// that is running. A part that waits SPLIT_GATE_NS without them closes the
+// gate and walks the whole DB block alone, as one part (the unsplit
+// schedule); a part that finds the gate closed leaves. So a launch finishes
+// whatever the start order and whatever other work holds the card's slots:
+// a DB block whose parts cannot start together is walked by one CUDA
+// block, at the unsplit speed. A wait in the walk of more than
+// SPLIT_WAIT_NS can then only be a fault of the walk itself; it traps, so
+// the launch fails (and with it the process's CUDA context) instead of
+// hanging the card.
+constexpr long long SPLIT_WAIT_NS = 5000000000LL;
+constexpr long long SPLIT_GATE_NS = 50000LL;
+constexpr int GATE_CLOSED = 1 << 30;
+enum GateTurn { GATE_WALK, GATE_ALONE, GATE_LEAVE };
+
+// This CUDA block's part of a split DB block, and the progress words.
+struct PairSplit {
+  int part;          // 0 .. parts - 1
+  int parts;         // CUDA blocks on the DB block
+  int* done;         // this part's count of finished steps
+  const int* prev;   // the count of the part before it in the ring
+  int* seen;         // shared: the count of prev that worker 0 last read
+};
+
+__device__ __forceinline__ void store_release(int* p, int x) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(x)
+               : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int x;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(x) : "l"(p)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spin until *p >= need (one thread); returns the value read.
+__device__ __forceinline__ int wait_for(const int* p, int need) {
+  const long long t0 = global_ns();
+  int x;
+  while ((x = load_acquire(p)) < need) {
+    if (global_ns() - t0 > SPLIT_WAIT_NS) __trap();
+    __nanosleep(64);
+  }
+  return x;
+}
+
+// One thread of each part of a split DB block, on arrival: its turn at the
+// DB block's gate word (zero on entry; see "The gate" above).
+__device__ __forceinline__ GateTurn split_gate(int* gate, int parts) {
+  int n = atomicAdd(gate, 1);
+  if (n & GATE_CLOSED) return GATE_LEAVE;
+  ++n;
+  const long long t0 = global_ns();
+  while (n < parts) {
+    if (global_ns() - t0 > SPLIT_GATE_NS) {
+      const int was = atomicCAS(gate, n, n | GATE_CLOSED);
+      if (was == n) return GATE_ALONE;
+      n = was;                       // another part arrived, or closed it
+    } else {
+      __nanosleep(32);
+      n = load_acquire(gate);
+    }
+    if (n & GATE_CLOSED) return GATE_LEAVE;
+  }
+  return GATE_WALK;
+}
+
 // hg_walk_block's carry form in lane pairs: blockDim.x / (V / 2) workers of
 // W = V / 2 threads, thread u of a worker on lanes 2u and 2u + 1, on the
 // same schedule (written apart: one schedule for both forms would branch on
@@ -686,22 +798,26 @@ __device__ __forceinline__ void hg_step_pairs(
 // first strip then reads no row above and the last strip writes none below,
 // so carry is only the scratch through which the last worker of a round
 // hands its bottom row to worker 0 of the next (null when no round follows
-// another: one strip).
-template <bool WHOLE>
+// another: one strip). SPLIT: the split walk above, this CUDA block being
+// part sp.part of sp.parts (S > 1); the maximum returned is over the strips
+// of this part.
+template <bool WHOLE, bool SPLIT = false>
 __device__ __forceinline__ unsigned hg_walk_block_pairs(
     const int8_t* __restrict__ codes, int npos, int V,
     const int* __restrict__ qp, int m, int goe, int ge,
-    const PairRows carry, int* smem) {
+    const PairRows carry, int* smem, const PairSplit sp = PairSplit{}) {
   const int W = V / 2;
   const int S = blockDim.x / W;
   const int k = threadIdx.x / W;
   const int v = threadIdx.x - k * W;
   const int n_full = m / STRIP;
   const int n_strips = n_full + (m % STRIP) / STRIP_TAIL;
+  const int ring_len = SPLIT ? S * sp.parts : S;   // workers in the ring
+  const int g = SPLIT ? sp.part * S + k : k;       // this worker's place
   const int D = S == 1 ? npos : HG_STEP;     // positions per step
   const int nc = S == 1 ? 1 : (npos + D - 1) / D;
-  const int P = nc > S ? nc : S;             // steps per round
-  const int n_rounds = (n_strips + S - 1) / S;
+  const int P = nc > ring_len ? nc : ring_len;   // steps per round
+  const int n_rounds = (n_strips + ring_len - 1) / ring_len;
   const int n_items = n_rounds * P;
   unsigned* const words = reinterpret_cast<unsigned*>(smem);
   unsigned* prof = words + k * STRIP * TABLE_CODES;
@@ -715,13 +831,14 @@ __device__ __forceinline__ unsigned hg_walk_block_pairs(
   unsigned gm = ngoe2;                       // H = 0 in both lanes
   unsigned diag_top = ngoe2;
   int s = 0, rows = 0;                       // this worker's current strip
+  int seen = -1;                             // SPLIT: the count read last
   for (int t = 0; t < n_items + S - 1; ++t) {
     const int i = t - k;
     const int round = i / P;
     const int c = i - round * P;
-    if (i >= 0 && i < n_items && round * S + k < n_strips && c < nc) {
+    if (i >= 0 && i < n_items && round * ring_len + g < n_strips && c < nc) {
       if (c == 0) {                          // a new strip for this worker
-        s = round * S + k;
+        s = round * ring_len + g;
         rows = s < n_full ? STRIP : STRIP_TAIL;
         const int r0 = s < n_full ? s * STRIP
                                   : n_full * STRIP + (s - n_full) * STRIP_TAIL;
@@ -738,6 +855,17 @@ __device__ __forceinline__ unsigned hg_walk_block_pairs(
           prof[idx] = pair_of(qp[(int64_t)cc * m + r0 + r] + goe);
         }
         worker_sync(k, W, S);
+      }
+      if constexpr (SPLIT) {
+        // worker 0 reads the previous part's bottom row from the carries:
+        // wait until its last worker has written this item's positions
+        // (the same round, or for part 0 the round before)
+        const int need = (sp.part > 0 ? i : i - P) + S;
+        if (sp.parts > 1 && k == 0 && s > 0 && seen < need) {
+          if (v == 0) *sp.seen = wait_for(sp.prev, need);
+          worker_sync(0, W, S);
+          seen = *sp.seen;
+        }
       }
       const int p0 = c * D;
       const int n = npos - p0 < D ? npos - p0 : D;
@@ -768,6 +896,10 @@ __device__ __forceinline__ unsigned hg_walk_block_pairs(
       }
     }
     if (S > 1) __syncthreads();
+    if constexpr (SPLIT) {   // the step's carry writes are behind the barrier
+      if (sp.parts > 1 && threadIdx.x == (S - 1) * W)
+        store_release(sp.done, t + 1);
+    }
   }
   if (S > 1) {                               // fold the workers' maxima
     unsigned* red = ring;

@@ -185,6 +185,7 @@ def device_bytes_needed(packed: PackedDb, query_pack: bool = False,
 
 _DEVICE_TILE_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _LANE_MAP_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_SPLIT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def resident_fits(packed: PackedDb, device=None) -> bool:
@@ -222,6 +223,19 @@ def device_tiles(packed: PackedDb, device=None):
               *device_lane_maps(packed, dev))
     per_db[str(dev)] = cached
     return cached
+
+
+def device_splits(packed: PackedDb, device=None) -> lanes.Splits:
+    """Kernel 1's split plans of the resident stream (lanes.Splits), kept
+    per (PackedDb, device) beside it: from the blocks' positions in the
+    chunk metadata, each length's plan built and uploaded once."""
+    dev = resolve_device(device)
+    per_db = _SPLIT_CACHE.setdefault(packed, {})
+    if str(dev) not in per_db:
+        layout = stream_layout(packed)
+        per_db[str(dev)] = lanes.Splits(np.diff(layout["cum"])
+                                        * layout["jt"], layout["V"], dev)
+    return per_db[str(dev)]
 
 
 def device_lane_maps(packed: PackedDb, device=None):
@@ -430,7 +444,8 @@ def search_fused_batch(packed: PackedDb, queries, config: SearchConfig,
             with span("engine.launch", kernel=prof.kernel,
                       cells=prof.length * int(packed.total_residues)):
                 scores = lanes.score(dev_db[:4], prof, config.gap_open,
-                                     config.gap_extend)
+                                     config.gap_extend,
+                                     device_splits(packed, dev))
             with span("engine.top_k"):
                 v, si = device_top_k(scores, mask, lane2sorted, k)
             order.append(p)
@@ -541,10 +556,12 @@ def score_db_streaming(packed: PackedDb, query: FastaRecord,
     layout = stream_layout(packed)
     host = torch.zeros((layout["n_rows"], layout["V"]), dtype=torch.int32,
                        pin_memory=dev.type == "cuda")
+    lens = np.diff(layout["cum"]) * layout["jt"]   # each DB block's positions
     for tiles, outrow, row_start, g0, n_w in stream_windows(
             packed, window_tiles, max_in_flight, dev):
+        splits = lanes.Splits(lens[g0:g0 + n_w], layout["V"], dev)
         scores = lanes.score((tiles, outrow, n_w, row_start), prof,
-                             config.gap_open, config.gap_extend)
+                             config.gap_open, config.gap_extend, splits)
         host[g0:g0 + n_w].copy_(scores.view(n_w, -1), non_blocking=True)
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()

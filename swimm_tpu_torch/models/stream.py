@@ -20,7 +20,10 @@ For a database larger than device memory (SearchConfig(db_stream=True)):
   max_query_pad() rows) before the next window, so the DB crosses the link
   once per batch.
 - Windows are launched at their fill (t1 - t0 tiles, n_w rows, row starts
-  from the layout). The JAX module pads every window to one compiled
+  from the layout). Kernel 1's split plans of each window (lanes.Splits:
+  which of its longest blocks several CUDA blocks walk) are made on the
+  host from the window's block lengths, at the window's first launch of
+  each padded length. The JAX module pads every window to one compiled
   width and sends the pad tiles to a trash row; the kernels here take a
   row-start array and walk the longest rows first, so a trash row would
   be one long block walked first and in series.
@@ -459,6 +462,7 @@ def search_streaming_batch(packed, queries, config, device=None):
     mask, lane2sorted = engine.device_lane_maps(packed, dev)
     bins = engine.device_lane_bins(packed, dev) if config.evalue else None
     residues = packed.block_residues()
+    lens = np.diff(layout["cum"]) * layout["jt"]   # each DB block's positions
     k = config.top_k
     if merge == "buffer":            # one buffer per query: rows of a group
         buf = torch.zeros((len(order), n_rows, V), dtype=torch.int32,
@@ -472,6 +476,7 @@ def search_streaming_batch(packed, queries, config, device=None):
             packed, config.window_tiles, config.max_in_flight, dev):
         window = slice(g0 * V, (g0 + n_w) * V)
         real = int(residues[g0:g0 + n_w].sum())
+        splits = lanes.Splits(lens[g0:g0 + n_w], V, dev)
         vs, sis = [], []
         with span("stream.window", tiles=int(tiles.shape[0]), rows=n_w):
             for row, prof in enumerate(profiles):
@@ -479,7 +484,7 @@ def search_streaming_batch(packed, queries, config, device=None):
                           cells=prof.length * real):
                     scores = lanes.score((tiles, outrow, n_w, row_start),
                                          prof, config.gap_open,
-                                         config.gap_extend)
+                                         config.gap_extend, splits)
                 if merge == "buffer":
                     buf[row, g0:g0 + n_w] = scores.view(n_w, V)
                     continue

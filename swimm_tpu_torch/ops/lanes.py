@@ -12,6 +12,10 @@ bounds, so that its 16-bit guard (``scorer._pair_guard``) never waits for
 the device. The profile names the CUDA kernel (``kernel``, the
 ``engine.launch`` span's attr) and the query rows it dispatches (``rows``,
 what SearchMetrics.padded_cells counts).
+
+``Splits`` holds kernel 1's split plans of one stream (``scorer.split_plan``:
+which DB blocks several CUDA blocks walk), one per padded length, built on
+the host from the blocks' lengths; ``score`` takes the one for its profile.
 """
 
 from __future__ import annotations
@@ -73,11 +77,34 @@ class Profile:
         return self.qp.shape[1]
 
 
-def score(stream, prof: Profile, gap_open: int,
-          gap_extend: int) -> torch.Tensor:
+class Splits(dict):
+    """Kernel 1's split plans of one tile stream, by padded profile length:
+    a scorer.Split, or None where the launch splits nothing (every length
+    on the CPU). Each length is planned and uploaded the first time it is
+    asked for, without a wait for the device. lens: the stream's DB blocks'
+    positions on the host (a resident stream's are kept with it; a streamed
+    window's are made for each window)."""
+
+    def __init__(self, lens, V: int, device):
+        super().__init__()
+        self.lens, self.V, self.device = lens, V, torch.device(device)
+
+    def __missing__(self, m: int):
+        self[m] = split = scorer.upload_split(scorer.split_plan(
+            self.lens, m, self.V, scorer.split_slots(self.device, self.V)),
+            self.device)
+        return split
+
+
+def score(stream, prof: Profile, gap_open: int, gap_extend: int,
+          splits: Splits | None = None) -> torch.Tensor:
     """(n_rows * V,) int32 scores of every lane of stream = (tiles, outrow,
-    n_rows, row_start), on its device, for one profile on that device."""
+    n_rows, row_start), on its device, for one profile on that device;
+    kernel 1 on the split walk where splits (the stream's) splits a block
+    at the profile's length."""
     tiles, outrow, n_rows, row_start = stream
+    kw = ({"split": splits[prof.rows]}
+          if splits is not None and prof.mode == "tiles" else {})
     return _wrapper(prof.mode)(tiles, outrow, n_rows, prof.qp, gap_open,
                                gap_extend, row_start=row_start,
-                               bounds=prof.bounds).reshape(-1)
+                               bounds=prof.bounds, **kw).reshape(-1)

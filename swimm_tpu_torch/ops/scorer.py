@@ -24,6 +24,14 @@ profile's row maxima, a bound on every H, stays below the limit.
 ``_pair_guard`` is that guard, for kernel 1 here and kernel 2 in
 ops/longquery.py.
 
+A CUDA block walks a DB block no faster than one SM, so a block much longer
+than its launch's share of positions a slot runs on alone after the rest.
+Given a ``Split``, the pair form's launch walks such blocks with two or
+four CUDA blocks each (the split walk, ``sw_ragged_kernel<false, true,
+true>``). ``split_plan`` chooses them on the host from the blocks' lengths,
+the profile's strips and the card's slots (``split_parts``, ``split_map``,
+``split_slots``); ops/lanes.py keeps one plan per stream and length.
+
 (``score_chunk`` is the one-chunk case of ``score_chunks``.) There is no
 fallback from one to the other: a CUDA tensor either reaches the kernel or
 raises. Each launch, and every allocation it needs, runs under
@@ -46,9 +54,12 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from swimm_tpu_torch.utils import metrics
 
 NEG = -(1 << 28)   # same floor as the CUDA kernels (csrc/sw_ragged.cu)
 JT = 32            # db positions per tile (PackedDb.flat_tiles)
@@ -353,6 +364,10 @@ RAGGED_SIGNATURES = {
                          _INT, _INT, _INT, _PTR, _PTR, _PTR],
     "sw_ragged_pairs_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR],
+    "sw_ragged_split_launch": [_PTR, _PTR, _INT, _INT, _INT, _INT, _PTR,
+                               _INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+                               _PTR],
+    "sw_ragged_split_slots": [_INT, _INT, _PTR],
     "sw_ragged_qtile_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR, _INT,
                                _INT, _INT, _PTR, _PTR, _PTR, _PTR],
     "sw_ragged_qtile_pairs_launch": [_PTR, _PTR, _INT, _INT, _INT, _PTR,
@@ -453,11 +468,142 @@ def _tiles_int32(tiles, outrow, n_rows, qp, gap_open, gap_extend, ceiling,
     return out
 
 
+def n_strips(m: int) -> int:
+    """Strips of an m-row profile: 32 rows each, then 8 (csrc/sw_walk.cuh)."""
+    return m // 32 + (m % 32) // 8
+
+
+def pair_workers(V: int, m: int) -> int:
+    """Workers of V / 2 threads per CUDA block of kernel 1's pair form, as
+    csrc/sw_walk_hg.cuh hg_launch_shape gives them: four, as far as the
+    thread limit and the strip count allow."""
+    return max(1, min(4, MAX_LANES // (V // 2), n_strips(m)))
+
+
+SPLIT_PARTS = (1, 2, 4)   # CUDA blocks that may walk one DB block
+
+
+def split_parts(lens, m: int, V: int, slots: int,
+                force: int | None = None) -> np.ndarray:
+    """k_r, the CUDA blocks ("parts") that walk each DB block of one launch
+    of kernel 1's pair form, from the blocks' positions (lens, on the host),
+    the profile's rows m, the lanes V and the card's slots (CUDA blocks of
+    the launch shape it holds at once: split_slots).
+
+    A DB block takes about its positions times its rounds of strips (S
+    workers a part take S * k strips a round), and no CUDA block is faster
+    than one SM. k_r is the least of SPLIT_PARTS that brings a part's work
+    within the launch's mean work a slot: lens_r * ceil(strips / (S k)) <=
+    sum(lens) / slots * ceil(strips / S); the largest allowed where none
+    does. No part without a strip: k <= ceil(strips / S). The parts of the
+    split blocks, longest first, fill at most the slots (beyond them a part
+    would not start in the launch's first wave); the rest take one. No
+    block splits where the slots are fewer than two. force: every block
+    takes that k (or the largest allowed below it), for tests of the walk."""
+    lens = np.asarray(lens, dtype=np.int64)
+    k = np.ones(len(lens), dtype=np.int64)
+    S = pair_workers(V, m)
+    rounds = -(-n_strips(m) // S)
+    allowed = [p for p in SPLIT_PARTS if p <= min(rounds, slots)]
+    if len(allowed) < 2 or not len(lens):
+        return k
+    if force is not None:
+        k[:] = max(p for p in allowed if p <= force)
+        return k
+    budget = lens.sum() / slots * rounds
+    if lens.max() * rounds <= budget:     # no block past its share
+        return k
+    k[:] = allowed[-1]
+    for p in reversed(allowed):
+        k[lens * -(-n_strips(m) // (S * p)) <= budget] = p
+    order = longest_first(lens)
+    over = np.cumsum(np.where(k[order] > 1, k[order], 0)) > slots
+    k[order[over]] = 1
+    return k
+
+
+def longest_first(lens) -> np.ndarray:
+    """The DB blocks in the order kernel 1 takes them: longest first, and
+    among equals the last first (csrc/sw_ragged.cu block_row)."""
+    lens = np.asarray(lens)
+    return np.lexsort((-np.arange(len(lens)), -lens))
+
+
+def split_map(lens, k) -> np.ndarray | None:
+    """The split launch's block map for parts k (split_parts): one int32
+    entry per CUDA block, row << 4 | part << 2 | (parts - 1), longest
+    block first, a block's parts adjacent and part 0 first; None where
+    every k is 1 (the unsplit launch)."""
+    k = np.asarray(k, dtype=np.int64)
+    if not (k > 1).any():
+        return None
+    order = longest_first(lens)
+    ko = k[order]
+    part = np.arange(int(ko.sum())) - np.repeat(np.cumsum(ko) - ko, ko)
+    return (np.repeat(order, ko) << 4 | part << 2
+            | np.repeat(ko - 1, ko)).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class Split:
+    """One launch of kernel 1's split walk: its block map (split_map) on
+    the launch's device, and what the counters count of it."""
+    block_map: torch.Tensor   # (CUDA blocks,) int32
+    rows: int                 # DB blocks walked by more than one part
+    parts: int                # CUDA blocks beyond one per DB block
+
+
+def split_plan(lens, m: int, V: int, slots: int | None,
+               force: int | None = None):
+    """(block map on the host or None, split rows, extra parts) of one
+    launch over DB blocks of lens positions (split_parts, split_map); no
+    map without slots (a CPU device)."""
+    if slots is None or V % 64:
+        return None, 0, 0
+    k = split_parts(lens, m, V, slots, force)
+    return split_map(lens, k), int((k > 1).sum()), int((k - 1).sum())
+
+
+def upload_split(plan, device) -> Split | None:
+    """split_plan's plan as a Split on device, copied from pinned memory
+    without a wait for the device; None for no map."""
+    bmap, rows, parts = plan
+    if bmap is None:
+        return None
+    host = torch.from_numpy(bmap)
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    return Split(host.to(device, non_blocking=True), rows, parts)
+
+
+_SLOTS: dict = {}
+
+
+def split_slots(device, V: int) -> int | None:
+    """The split walk's slots on a card (sw_ragged_split_slots: SMs times
+    its resident CUDA blocks per SM, at four workers of V / 2 threads);
+    None on the CPU, which walks nothing split. Once per (card, V)."""
+    device = torch.device(device)
+    if device.type != "cuda" or V % 64:
+        return None
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), V)
+    if key not in _SLOTS:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            raise_on(kernels().sw_ragged_split_slots(
+                V, max_query_pad(), ctypes.byref(got)), "sw_ragged_kernel")
+        _SLOTS[key] = got.value
+    return _SLOTS[key]
+
+
 def _tiles_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend,
-                 row_start):
+                 row_start, split=None):
     """Kernel 1 in its pair form, with no second pass, on checked inputs
     that pair_form_fits accepts: one launch of sw_ragged_kernel<false,
-    true> on a CUDA tensor, score_tiles_pairs_ref on a CPU tensor."""
+    true>, or with a Split of sw_ragged_kernel<false, true, true> (the
+    split walk), on a CUDA tensor; score_tiles_pairs_ref on a CPU tensor,
+    whatever the split."""
     if tiles.device.type == "cpu":
         return score_tiles_pairs_ref(tiles, outrow, n_rows, qp, gap_open,
                                      gap_extend, row_start)
@@ -465,16 +611,32 @@ def _tiles_pairs(tiles, outrow, n_rows, qp, gap_open, gap_extend,
         row_start = row_starts(outrow, n_rows)
     T, jt, V = tiles.shape
     m = qp.shape[1]
+    stream = torch.cuda.current_stream(tiles.device).cuda_stream
     with torch.cuda.device(tiles.device):
-        out = torch.empty((n_rows, V), dtype=torch.int32, device=tiles.device)
         carry = strip_carry(m, tiles.shape, tiles.device, pairs=True)
-        err = kernels().sw_ragged_pairs_launch(
-            tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
-            qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
-            _ptr(carry), out.data_ptr(),
-            torch.cuda.current_stream(tiles.device).cuda_stream)
+        if split is None:
+            out = torch.empty((n_rows, V), dtype=torch.int32,
+                              device=tiles.device)
+            err = kernels().sw_ragged_pairs_launch(
+                tiles.data_ptr(), row_start.data_ptr(), n_rows, V, jt,
+                qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
+                _ptr(carry), out.data_ptr(), stream)
+        else:   # out, then the progress and gate words, all zero
+            n_blocks = split.block_map.numel()
+            buf = torch.zeros(n_rows * V + 2 * n_blocks, dtype=torch.int32,
+                              device=tiles.device)
+            out = buf[:n_rows * V].view(n_rows, V)
+            err = kernels().sw_ragged_split_launch(
+                tiles.data_ptr(), row_start.data_ptr(), n_rows, n_blocks, V,
+                jt, qp.data_ptr(), m, gap_open + gap_extend, gap_extend,
+                split.block_map.data_ptr(), buf[n_rows * V:].data_ptr(),
+                _ptr(carry), out.data_ptr(), stream)
     raise_on(err, "sw_ragged_kernel")
     score_tiles.pair_launches += 1
+    if split is not None:
+        metrics.count("score_tiles.split_launches")
+        metrics.count("score_tiles.split_rows", split.rows)
+        metrics.count("score_tiles.split_parts", split.parts)
     return out
 
 
@@ -503,7 +665,7 @@ def score_tiles_pairs_ref(tiles, outrow, n_rows: int, qp, gap_open: int,
 def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
                 gap_extend: int, precision: str = "f32",
                 ceiling: int | None = None,
-                row_start=None, bounds=None) -> torch.Tensor:
+                row_start=None, bounds=None, split=None) -> torch.Tensor:
     """Score an entire ragged tile stream (all blocks, any lengths) in ONE
     kernel launch: with no ceiling behind _pair_guard (the pair form where
     it fits, then the int32 form over the blocks that may have wrapped),
@@ -523,6 +685,9 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
         pass it (ops/lanes.py's Profile holds it). Without it the bounds are
         read from qp, on a card a wait for the device before the launch:
         for direct callers only.
+      split: optional Split of this stream for qp's rows (split_plan): the
+        pair form's launch on the split walk. None, and on the CPU, the
+        unsplit launch; the int32 form ignores it.
 
     Returns: (n_rows, V) int32 exact local-alignment scores.
     """
@@ -537,14 +702,16 @@ def score_tiles(tiles, outrow, n_rows: int, qp, gap_open: int,
         score_tiles, tiles, outrow, n_rows, row_start, qp, gap_open,
         gap_extend, bounds,
         lambda t, o, n, rs: _tiles_pairs(t, o, n, qp, gap_open, gap_extend,
-                                         rs),
+                                         rs, split),
         lambda t, o, n, rs: _tiles_int32(t, o, n, qp, gap_open, gap_extend,
                                          None, rs))
 
 
 score_tiles.launches = 0   # sw_ragged_kernel<CEIL> launches (the int32
 # form; never the plain path)
-score_tiles.pair_launches = 0   # sw_ragged_kernel<false, true> launches
+score_tiles.pair_launches = 0   # sw_ragged_kernel<false, true> launches,
+# split or not (metrics counters score_tiles.split_launches, split_rows and
+# split_parts count those on the split walk)
 score_tiles.rescored_blocks = 0   # DB blocks scored again in int32
 score_tiles.kernel = "sw_ragged_kernel"   # its CUDA kernel's name, both forms
 

@@ -159,9 +159,10 @@ def test_run_round_routes_equal_jax(case):
     res = fuzz.run_round(d, "cpu", np.random.default_rng([0, 1]))
     assert res["mismatch"] is None
     routes = res["routes"]
-    assert list(routes) == (["k5", "k2", "k2_planted", "k2_int32",
-                             "k1_planted", "k3"]
-                            if d.long else ["k4", "k1", "k3", "ladder"])
+    assert list(routes) == (
+        ["k5", "k2", "k2_planted", "k2_int32", "k1_planted", "k3"] if d.long
+        else ["k4", "k1"] + ["k1_split"] * (d.ceiling is None)
+        + ["k3", "ladder"])
     mat = j_get_matrix(d.matrix)
     B = d.codes.shape[0]
     exact = jcref.sw_score_many(d.query, d.seqs, mat, d.gap_open,
@@ -175,8 +176,9 @@ def test_run_round_routes_equal_jax(case):
         if name in routes:
             want = capped if name in ("k4", "k1") else xla
             np.testing.assert_array_equal(routes[name], want)
-    if "ladder" in routes:
-        np.testing.assert_array_equal(routes["ladder"], xla)
+    for name in ("ladder", "k1_split"):
+        if name in routes:
+            np.testing.assert_array_equal(routes[name], xla)
     assert 2 <= len(res["pack"]) <= 6
     for q, plane in zip(res["pack"], routes["k3"]):
         np.testing.assert_array_equal(plane, jcref.sw_score_many(

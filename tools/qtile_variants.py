@@ -10,7 +10,9 @@ sw_ragged_kernel and sw_chunk_kernel, the widest pack of the 20 queries for
 sw_ragged_packed_kernel); kernel 1 also on the last of the stream's
 8,192-tile windows (its longest blocks, as the streamed search walks them:
 k1_last), and kernel 1's pair form (k1p, k1p_last) in every variant that
-has it.
+has it, and on the split walk over that window (k1s_last: the plan
+scorer.split_plan gives it at the card's slots) in every variant that has
+that.
 
     python3 tools/qtile_variants.py [--parent DIR] [--out DIR]
 
@@ -350,6 +352,29 @@ def main() -> int:
             raise RuntimeError("sw_ragged_kernel<false, true> launch failed")
         return out
 
+    # the split walk's plan for the last window at the card's slots
+    slots = ctypes.c_int(0)
+    if rag["shipped"].sw_ragged_split_slots(V, m1, ctypes.byref(slots)):
+        raise RuntimeError("sw_ragged_split_slots failed")
+    bmap, s_rows, s_parts = scorer.split_plan(
+        np.diff(last[1].cpu().numpy()) * jt, m1, V, slots.value or None)
+    note(f"split plan of the last window at m={m1}, {slots.value} slots: "
+         f"{s_rows} blocks split, {s_parts} more CUDA blocks")
+    bmap = None if bmap is None else torch.from_numpy(bmap).cuda()
+
+    def k1s(lib, t, rs, n):
+        car = carry1p.view(-1)[:t.numel()]
+        buf = torch.zeros(n * V + bmap.numel(), dtype=torch.int32,
+                          device="cuda")
+        if lib.sw_ragged_split_launch(
+                t.data_ptr(), rs.data_ptr(), n, bmap.numel(), V, jt,
+                qp1.data_ptr(), m1, 12, 2, bmap.data_ptr(),
+                buf[n * V:].data_ptr(), car.data_ptr(), buf.data_ptr(),
+                st()):
+            raise RuntimeError("sw_ragged_kernel<false, true, true> launch "
+                               "failed")
+        return buf[:n * V].view(n, V)
+
     def k2(lib, h, f):
         out = torch.empty((n_rows, V), dtype=torch.int32, device="cuda")
         if lib.sw_ragged_qtile_launch(
@@ -415,6 +440,8 @@ def main() -> int:
              and not n.startswith("whole_")]
     pairs1 = [n for n in dirs if hasattr(rag[n], "sw_ragged_pairs_launch")
               and not n.startswith("pair_")]
+    split1 = [n for n in pairs1 if hasattr(rag[n], "sw_ragged_split_launch")
+              and bmap is not None]
     h1p, f1p = longquery.to_pairs(h1), longquery.to_pairs(f1)
     for name in dirs:
         hs, fs = clone(h2), clone(f2)
@@ -438,9 +465,12 @@ def main() -> int:
         if name in pairs1:
             e.append(max(cs.max_err(k1p(rag[name]), ref[0]),
                          cs.max_err(k1p(rag[name], *last), ref1_last)))
+        if name in split1:
+            e.append(cs.max_err(k1s(rag[name], *last), ref1_last))
         errs[name] = max(errs[name], *e)
         note(f"{name} vs {first}, full size: kernels 5, 2 (1, 3, 4) (2 "
-             f"in pairs) (1 in pairs, whole stream and last window) "
+             f"in pairs) (1 in pairs, whole stream and last window) (1 "
+             f"split, last window) "
              f"max_abs_err {e}")
         del hs, fs, got5, h, f, got2
     if any(errs.values()):
@@ -500,6 +530,9 @@ def main() -> int:
             if name in pairs1:
                 row["k1p"] = cs.cuda_ms(lambda: k1p(rag[name]), 3)
                 row["k1p_last"] = cs.cuda_ms(lambda: k1p(rag[name], *last),
+                                             3)
+            if name in split1:
+                row["k1s_last"] = cs.cuda_ms(lambda: k1s(rag[name], *last),
                                              3)
             if name in WHOLE:
                 row["k1_last"] = cs.cuda_ms(lambda: k1(rag[name], *last), 3)
